@@ -1,0 +1,255 @@
+"""Sparse NDT submap grid: scatter-merge, rigid re-keying, neighbor lookup.
+
+Port of the sparse path of ``randt_slam_tpu/ndt/grid.py``.  A submap is the
+reference ``Map``'s storage (``ndt_map.h:155-162``): a dense int32 index grid
+pointing into a compact table of cells in sufficient-statistic form.
+
+ * insertion is a scatter-add of sufficient statistics keyed by cell mean
+   (``Map::mergeMapCell``, ``ndt_map.cpp:191-207``);
+ * neighbor lookup is a static window gather + masked top-k
+   (``Map::getClosestCells``, ``ndt_map.cpp:101-151``);
+ * rigid transforms re-key cells by their transformed means (a fix over the
+   reference's stale spatial index).
+
+Grid layout: row-major (iy, ix); ix = floor((x - offset_x)/res) with
+offset = -size/2 * res (``ndt_map.cpp:19-20``).  The JAX package's dense-grid
+functions are used by no pipeline path and are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import runtime
+from ..config import MapConfig
+from . import cells as C
+from .cells import CellStats
+
+
+class GridGeom(NamedTuple):
+    size_x: int
+    size_y: int
+    resolution: float
+
+    @property
+    def offset_x(self) -> float:
+        return -0.5 * self.size_x * self.resolution
+
+    @property
+    def offset_y(self) -> float:
+        return -0.5 * self.size_y * self.resolution
+
+    @classmethod
+    def from_config(cls, m: MapConfig) -> "GridGeom":
+        return cls(size_x=m.size_x, size_y=m.size_y, resolution=m.resolution)
+
+
+def cell_index(geom: GridGeom, xy):
+    """(ix, iy, in_bounds) for positions (..., 2); indices are int64."""
+    ix = torch.floor((xy[..., 0] - geom.offset_x) / geom.resolution).long()
+    iy = torch.floor((xy[..., 1] - geom.offset_y) / geom.resolution).long()
+    ok = (ix >= 0) & (ix < geom.size_x) & (iy >= 0) & (iy < geom.size_y)
+    return ix, iy, ok
+
+
+class SparseGrid(NamedTuple):
+    """NDT submap as a dense int32 index grid over a compact cell table.
+
+      index: (H, W) int32, -1 = empty, else slot into the stats table
+      stats: CellStats with batch (S,) -- compact sufficient statistics
+      count: () int32 -- allocated slots (monotone per submap lifetime)
+    """
+
+    index: torch.Tensor
+    stats: CellStats
+    count: torch.Tensor
+
+
+def empty_sparse(geom: GridGeom, capacity: int, dtype=torch.float32,
+                 device=None) -> SparseGrid:
+    return SparseGrid(
+        index=torch.full((geom.size_y, geom.size_x), -1, dtype=torch.int32,
+                         device=device),
+        stats=C.zeros((capacity,), dtype, device),
+        count=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+@torch.profiler.record_function("randt.submap_merge")
+def scatter_sparse(geom: GridGeom, sg: SparseGrid, new: CellStats, valid) -> SparseGrid:
+    """Merge a batch of cells into the sparse grid, keyed by cell mean.
+
+    Existing target cells merge by sufficient-statistic addition; new targets
+    allocate table slots.  First-occurrence winners per target grid slot come
+    from a scatter-min race, take consecutive slots by a prefix sum and are
+    written into the index grid; every incoming cell then re-gathers its slot
+    so in-batch duplicates merge into the winner's slot.  Table overflow
+    drops cells.  Dropped writes go to one extra slot past the end, which is
+    cut off (the JAX package's ``mode="drop"``).
+    """
+    S = sg.stats.n.shape[0]
+    HW = geom.size_x * geom.size_y
+    dev = sg.index.device
+    mu = C.mean(new)
+    ix, iy, inb = cell_index(geom, mu[..., :2])
+    ok = inb & valid & (new.n > 0)
+    flat = torch.where(ok, iy * geom.size_x + ix, 0)
+    idx_flat = sg.index.reshape(-1)
+
+    cur = idx_flat[flat]
+    is_new = ok & (cur < 0)
+    Cn = flat.shape[0]
+    pos = torch.arange(Cn, device=dev)
+    race = torch.full((HW + 1,), Cn, dtype=torch.long, device=dev)
+    race.scatter_reduce_(0, torch.where(is_new, flat, HW), pos, "amin",
+                         include_self=True)
+    winner = is_new & (race[flat] == pos)
+    order = torch.cumsum(winner.to(torch.int32), dim=0) - 1
+    slot_w = sg.count + order
+    alloc = winner & (slot_w < S)
+    idx_ext = torch.cat([idx_flat, idx_flat.new_full((1,), -1)])
+    idx_ext[torch.where(alloc, flat, HW)] = slot_w.to(torch.int32)
+    idx_flat = idx_ext[:HW]
+
+    slot = idx_flat[flat]
+    use = ok & (slot >= 0)
+    tgt = torch.where(use, slot.long(), S)
+    w = use.to(new.n.dtype)
+
+    def add(table, rows):
+        ext = torch.cat([table, table.new_zeros((1,) + table.shape[1:])])
+        return runtime.index_add(ext, tgt, rows)[:S]
+
+    stats = CellStats(
+        n=add(sg.stats.n, new.n * w),
+        s=add(sg.stats.s, new.s * w[..., None]),
+        ss=add(sg.stats.ss, new.ss * w[..., None, None]),
+    )
+    count = torch.clamp(sg.count + torch.sum(winner.to(torch.int32)), max=S)
+    return SparseGrid(
+        index=idx_flat.reshape(geom.size_y, geom.size_x), stats=stats,
+        count=count.to(torch.int32),
+    )
+
+
+def transform_sparse(geom: GridGeom, sg: SparseGrid, pose) -> SparseGrid:
+    """Rigid-transform a sparse grid and re-key cells by transformed means
+    (``Map::transformMap`` + submap re-anchoring, with a fresh index grid).
+    Cells that land outside the grid are dropped."""
+    moved = C.transform(
+        CellStats(sg.stats.n[None], sg.stats.s[None], sg.stats.ss[None]),
+        pose[None],
+    )
+    moved = CellStats(moved.n[0], moved.s[0], moved.ss[0])
+    fresh = empty_sparse(geom, sg.stats.n.shape[0], sg.stats.s.dtype,
+                         sg.index.device)
+    return scatter_sparse(geom, fresh, moved, moved.n > 0)
+
+
+def derive_sparse_fields(sg: SparseGrid, min_points: int, cell_cfg):
+    """(mean, regularized cov, valid) of the compact cell table."""
+    mu, cov = C.mean_cov(
+        sg.stats, cell_cfg.eig_floor_ratio, cell_cfg.intensity_var_jitter,
+        use_pndt=cell_cfg.use_pndt,
+    )
+    return mu, cov, C.valid_mask(sg.stats, min_points)
+
+
+class NeighborSet(NamedTuple):
+    """k fixed-map neighbors per query cell."""
+
+    mean: torch.Tensor   # (..., k, 3)
+    cov: torch.Tensor    # (..., k, 3, 3)
+    valid: torch.Tensor  # (..., k) bool
+
+
+@torch.profiler.record_function("randt.association")
+def window_neighbors_sparse(
+    geom: GridGeom,
+    index,        # (H, W) int32 index grid
+    t_mean,       # (S, 3) derived table fields
+    t_cov,        # (S, 3, 3)
+    t_valid,      # (S,)
+    q_mean,
+    q_cov,
+    q_valid,
+    k: int,
+    radius: int,
+    use_distribution_metric: bool = True,
+) -> NeighborSet:
+    """Masked top-k neighbor lookup over a static (2r+1)^2 window: one index
+    gather from the grid, then field gathers from the compact table.  Same
+    cells as the reference ring search whenever they lie in the window."""
+    H, W = geom.size_y, geom.size_x
+    dev = q_mean.device
+    ix, iy, inb = cell_index(geom, q_mean[..., :2])
+
+    d = torch.arange(-radius, radius + 1, device=dev)
+    dyy, dxx = torch.meshgrid(d, d, indexing="ij")
+    dxx = dxx.reshape(-1)
+    dyy = dyy.reshape(-1)
+    nx = ix[:, None] + dxx[None, :]  # (Q, W2)
+    ny = iy[:, None] + dyy[None, :]
+    ok = inb[:, None] & (nx >= 0) & (nx < W) & (ny >= 0) & (ny < H)
+    flat = torch.where(ok, ny * W + nx, 0)
+
+    slots = index.reshape(-1)[flat]             # (Q, W2) int32
+    have = ok & (slots >= 0) & q_valid[:, None]
+    sl = torch.where(have, slots, 0).long()
+    gm = t_mean[sl]                              # (Q, W2, 3)
+    gc = t_cov[sl]                               # (Q, W2, 3, 3)
+    gv = have & t_valid[sl]
+
+    if use_distribution_metric:
+        dist = C.mahalanobis_sq_intensity(q_mean[:, None, :], q_cov[:, None], gm, gc)
+    else:
+        diff = gm[..., :2] - q_mean[:, None, :2]
+        dist = torch.sum(diff * diff, dim=-1)
+    dist = torch.where(gv, dist, float("inf"))
+
+    return _select_topk(dist, gm, gc, k)
+
+
+def _select_topk(dist, gm, gc, k: int):
+    """Pick the k nearest window cells per query (first index among ties, as
+    ``argmin`` and ``lax.top_k`` both do)."""
+    if k <= 4:
+        means, covs, valids = [], [], []
+        for _ in range(k):
+            i = torch.argmin(dist, dim=-1)
+            v = torch.gather(dist, -1, i[..., None])[..., 0]
+            means.append(_take_row(gm, i))
+            covs.append(_take_row(gc, i))
+            valids.append(torch.isfinite(v))
+            dist = dist.scatter(-1, i[..., None], float("inf"))
+        return _sanitize(NeighborSet(
+            mean=torch.stack(means, dim=-2),
+            cov=torch.stack(covs, dim=-3),
+            valid=torch.stack(valids, dim=-1),
+        ))
+    order = torch.sort(dist, dim=-1, stable=True)[1][..., :k]
+    sel = torch.gather(dist, -1, order)
+    return _sanitize(NeighborSet(
+        mean=torch.stack([_take_row(gm, order[..., j]) for j in range(k)], -2),
+        cov=torch.stack([_take_row(gc, order[..., j]) for j in range(k)], -3),
+        valid=torch.isfinite(sel),
+    ))
+
+
+def _take_row(x, i):
+    """x (Q, W2, ...) at window position i (Q,) -> (Q, ...)."""
+    return x[torch.arange(x.shape[0], device=x.device), i]
+
+
+def _sanitize(nb: NeighborSet) -> NeighborSet:
+    """Benign values for invalid (padded) neighbors so residual Jacobians stay
+    finite in float32 (their weights are zero)."""
+    eye = torch.eye(3, dtype=nb.cov.dtype, device=nb.cov.device)
+    v = nb.valid[..., None]
+    return NeighborSet(
+        mean=torch.where(v, nb.mean, 0.0),
+        cov=torch.where(v[..., None], nb.cov, eye),
+        valid=nb.valid,
+    )

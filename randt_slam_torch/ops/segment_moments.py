@@ -1,0 +1,97 @@
+"""Fused segment-sum + top-k compaction (kernel K2, ``csrc/segment_moments.cu``).
+
+Port of ``randt_slam_tpu/ops/segment_moments.py``.  The scan-NDT build keeps
+only the ``k`` most-populated cluster cells of a scan, so the multi-channel
+moment reduction only covers those ``k`` segments:
+
+1. per-segment point counts (channel 0, the 0/1 point weight) -- plain
+   PyTorch; the sums are exact integers, so their order does not matter;
+2. the ``k`` largest counts, lower segment id first among equal counts (the
+   order of ``lax.top_k``; counts tie all the time, so a stable sort);
+3. the moment pass over those ``k`` segments -- the kernel on CUDA tensors,
+   :func:`topi_moments_plain` on CPU tensors.
+
+``segment_moments`` (the full segment sum, TPU kernel K5) is not ported yet;
+its only callers are tests and a profiling script of the JAX package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import runtime
+from . import build
+
+MAX_CHANNELS = 16
+
+
+def topi_moments_plain(values, ids, topi, num_segments: int):
+    """out[s] = sum_p [ids[p] == topi[s]] values[p] as the JAX package's plain
+    path computes it: the full segment sum, then the rows of ``topi``.
+    ``ids`` outside [0, num_segments) are dropped."""
+    ok = (ids >= 0) & (ids < num_segments)
+    safe = torch.where(ok, ids, num_segments).long()
+    full = runtime.index_add(
+        values.new_zeros((num_segments + 1, values.shape[1])), safe, values)
+    return full[:num_segments][topi.long()]
+
+
+def _lib():
+    lib = build.library("segment_moments")
+    fn = lib.topi_moments_f32
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def topi_moments_cuda(values, ids, topi):
+    """Launch the K2 moment kernel.  ``ids`` (P,) int32 with -1 for dropped
+    points, ``topi`` (k,) int32 segment ids; raises on anything else."""
+    if not (values.is_cuda and ids.device == values.device
+            and topi.device == values.device):
+        raise ValueError("topi_moments_cuda: all tensors must be on one CUDA device")
+    if values.dtype != torch.float32 or ids.dtype != torch.int32 \
+            or topi.dtype != torch.int32:
+        raise TypeError("topi_moments_cuda: float32 values, int32 ids and topi")
+    if values.dim() != 2 or ids.shape != (values.shape[0],) or topi.dim() != 1:
+        raise ValueError("topi_moments_cuda: shapes (P, CH), (P,), (k,) expected")
+    if not 1 <= values.shape[1] <= MAX_CHANNELS:
+        raise ValueError(f"topi_moments_cuda: 1 <= CH <= {MAX_CHANNELS}")
+    if not (values.is_contiguous() and ids.is_contiguous()
+            and topi.is_contiguous()):
+        raise ValueError("topi_moments_cuda: inputs must be contiguous")
+    P, CH = values.shape
+    k = topi.shape[0]
+    out = torch.empty((k, CH), dtype=torch.float32, device=values.device)
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    err = _lib()(values.data_ptr(), ids.data_ptr(), topi.data_ptr(),
+                 out.data_ptr(), P, CH, k, stream)
+    if err != 0:
+        raise RuntimeError(f"segment_topk_moments kernel launch failed: CUDA error {err}")
+    build.LAUNCHES["segment_topk_moments"] += 1
+    return out
+
+
+def segment_topk_moments(values, ids, num_segments: int, k: int):
+    """Reduce ``values`` (P, CH) into the ``k`` segments with the largest
+    channel-0 sums: returns ``(out (k, CH), seg_ids (k,))`` ordered by
+    descending count."""
+    ok = (ids >= 0) & (ids < num_segments)
+    safe = torch.where(ok, ids, num_segments).long()
+    # Channel 0 holds 0/1 point weights: the float sums are exact integers,
+    # identical in any order, so the plain scatter-add is reproducible here.
+    counts = torch.index_add(values.new_zeros(num_segments + 1), 0, safe,
+                             values[:, 0])[:num_segments]
+    topi = torch.sort(counts, descending=True, stable=True)[1][:k]
+    if values.device.type == "cuda":
+        ids32 = torch.where(ok, ids, -1).to(torch.int32)
+        out = topi_moments_cuda(values.contiguous(), ids32,
+                                topi.to(torch.int32))
+        return out, topi
+    if values.device.type == "cpu":
+        return topi_moments_plain(values, ids, topi, num_segments), topi
+    raise ValueError(f"segment_topk_moments: unsupported device {values.device}")

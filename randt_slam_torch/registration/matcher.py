@@ -1,0 +1,318 @@
+"""Sliding-window scan-to-submap registration (the reference ``Matcher``).
+
+Port of the odometry part of ``randt_slam_tpu/registration/matcher.py``
+(``ndt_matcher.cpp``): ``predictTransform`` (:22-59) ->
+:func:`predict_next_state`, ``estimateTransformCeres`` (:322-424) ->
+:func:`estimate_window`.  Data association runs once per frame and gathers
+fixed-map neighbors for every (window slot, fixed map, moving cell); the GNC x
+LM iteration then runs over one fixed-shape residual batch.
+
+Window parameter layout: params (W+1, 9); row 0 is the anchor state (pose
+constant, velocities free), rows 1..W are the active states, row W the
+current frame.
+
+What depends only on the cadence counters (which states exist, which fixed
+maps are in use) is passed as host values, so that building the masks never
+waits on the device.  ``estimate_loop`` and ``global_grid_search`` (loop
+closure) are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import runtime
+from ..config import SlamConfig
+from ..geometry import normalize_angle, rotmat
+from ..ndt import grid as G
+from . import barron
+from . import residuals as R
+from . import solver
+
+
+class ScanWindow(NamedTuple):
+    """Derived NDT fields of the last W scans (moving maps), base frame.
+    Slot W-1 is the current scan; slot j pairs with window state j+1."""
+
+    mean: torch.Tensor   # (W, C, 3)
+    cov: torch.Tensor    # (W, C, 3, 3)
+    valid: torch.Tensor  # (W, C)
+
+
+class FixedMaps(NamedTuple):
+    """Derived fields of the fixed NDT maps (current submap + optional
+    previous submap in the current frame, ``local_fuser.cpp:128-136``)."""
+
+    index: tuple         # F-tuple of (H, W) int32 index grids (-1 = empty)
+    mean: torch.Tensor   # (F, S, 3)
+    cov: torch.Tensor    # (F, S, 3, 3)
+    valid: torch.Tensor  # (F, S)
+    use: tuple           # F-tuple of host bools: second map only in overlap
+
+
+def transform_mean_cov(pose, mean, cov):
+    """Rigid transform of cell distributions: mu' = R3 mu + t3,
+    cov' = R3 cov R3^T (``ndt_cell.cpp:117-123``).  pose (..., 3) broadcast
+    against mean (..., C, 3)."""
+    R2 = rotmat(pose[..., 2])
+    dt = mean.dtype
+    z = torch.zeros(pose.shape[:-1] + (2, 1), dtype=dt, device=pose.device)
+    bot = torch.zeros(pose.shape[:-1] + (1, 3), dtype=dt, device=pose.device)
+    bot[..., 0, 2] = 1.0
+    A = torch.cat([torch.cat([R2, z], dim=-1), bot], dim=-2)
+    t3 = torch.cat([pose[..., :2], z[..., 0, :]], dim=-1)
+    mu = torch.einsum("...ij,...cj->...ci", A, mean) + t3[..., None, :]
+    cv = torch.einsum("...ij,...cjk,...lk->...cil", A, cov, A)
+    return mu, cv
+
+
+def predict_next_state(state, raw_dt):
+    """``Matcher::predictTransform``: constant-velocity rollout of the newest
+    state; the reference zeroes lin_acc before predicting (``:26``)."""
+    acc = runtime.const(np.isin(np.arange(R.STATE_DIM), [R.AX, R.AY]),
+                        torch.bool, state.device)
+    return R.predict_state(torch.where(acc, 0.0, state), raw_dt)
+
+
+class WindowEstimate(NamedTuple):
+    states: torch.Tensor      # (W+1, 9) updated window states
+    rejected: torch.Tensor    # bool -- pose-jump rejection fired
+    cost: torch.Tensor
+    n_residuals: torch.Tensor
+
+
+def _window_masks(mcfg, W: int, n_exist: int):
+    """Host-side parameter and slot masks for a window whose oldest
+    ``W + 1 - n_exist`` rows do not exist yet (``ndt_matcher.cpp:343-356``)."""
+    anchor_row = (W + 1) - n_exist
+    rows = np.arange(W + 1)
+    state_exists = rows >= anchor_row
+    slot_active = rows[1:] > anchor_row
+    # Anchor row: pose and bias constant, velocities free
+    # (``addMotionParameterBlock(..., true)``, :290-313, :352); acceleration
+    # frozen under the constant-velocity model; bias only with IMU.
+    per_state = np.ones(9, bool)
+    per_state[R.AX] = per_state[R.AY] = not mcfg.use_constant_velocity_model
+    per_state[R.BIAS] = bool(mcfg.use_imu)
+    static_mask = np.tile(per_state, (W + 1, 1))
+    pose_cols = np.isin(np.arange(9), [R.X, R.Y, R.TH])
+    anchor_frozen = (rows == anchor_row)[:, None] & (pose_cols | (np.arange(9) == R.BIAS))[None, :]
+    active_mask = (static_mask & ~anchor_frozen & state_exists[:, None]).reshape(-1)
+    angle_mask = np.tile(np.eye(1, 9, R.TH, dtype=bool)[0], W + 1)
+    return slot_active, active_mask, angle_mask
+
+
+def estimate_window(
+    cfg: SlamConfig,
+    states,        # (W+1, 9) anchor + active states (newest = predicted)
+    stamps,        # (W+1,)
+    state_exists,  # (W+1,) host bools -- False for slots before trajectory start
+    imu_meas,      # (W,) relative yaw measurements per transition
+    scans: ScanWindow,
+    fixed: FixedMaps,
+    prior_pose,    # (3,) pose-jump rejection reference (pre-prediction pose)
+):
+    """One frame of the sliding-window smoother (``estimateTransformCeres``)."""
+    mcfg = cfg.matcher
+    if mcfg.use_pallas_linearize or mcfg.use_pallas_chol:
+        raise NotImplementedError("next slice")
+    W = mcfg.smoothing_steps
+    K = mcfg.n_results_nn_lookup
+    geom = G.GridGeom.from_config(cfg.ndt_map)
+    dtype = states.dtype
+    dev = states.device
+    use_int = bool(mcfg.use_intensity_as_dimension)
+    lookup_dist = bool(mcfg.lookup_distribution) and use_int
+
+    n_exist = int(np.sum(np.asarray(state_exists, bool)))
+    slot_active_np, active_np, angle_np = _window_masks(mcfg, W, n_exist)
+    slot_active = runtime.const(slot_active_np, torch.bool, dev)
+    active_mask = runtime.const(active_np, torch.bool, dev)
+    angle_mask = runtime.const(angle_np, torch.bool, dev)
+
+    # ---- data association (once per frame, at current estimates) ----------
+    poses = states[1:, :3]  # (W, 3)
+    q_mu, q_cov = transform_mean_cov(poses, scans.mean, scans.cov)  # (W, C, ...)
+    C = scans.mean.shape[1]
+    Fm = fixed.mean.shape[0]
+    radius = cfg.ndt_map.nn_window_radius
+
+    per_map = []
+    for f in range(Fm):
+        nb = G.window_neighbors_sparse(
+            geom, fixed.index[f], fixed.mean[f], fixed.cov[f], fixed.valid[f],
+            q_mu.reshape(W * C, 3), q_cov.reshape(W * C, 3, 3),
+            scans.valid.reshape(W * C), K, radius,
+            use_distribution_metric=lookup_dist,
+        )
+        valid = nb.valid if fixed.use[f] else torch.zeros_like(nb.valid)
+        per_map.append(G.NeighborSet(
+            mean=nb.mean.reshape(W, C, K, 3), cov=nb.cov.reshape(W, C, K, 3, 3),
+            valid=valid.reshape(W, C, K)))
+    assoc = G.NeighborSet(*(torch.stack(a, dim=1) for a in zip(*per_map)))
+    # assoc.*: (W, F, C, K, ...); rows <= anchor contribute no factors.
+    pair_valid = assoc.valid & slot_active[:, None, None, None]
+
+    # Benign values for invalid (padded) moving cells: keeps Jacobians finite.
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    safe_mean = torch.where(scans.valid[..., None], scans.mean, 0.0)
+    safe_cov = torch.where(scans.valid[..., None, None], scans.cov, eye3)
+    m_mean_b = safe_mean[:, None, :, None, :].expand(W, Fm, C, K, 3)
+    m_cov_b = safe_cov[:, None, :, None, :, :].expand(W, Fm, C, K, 3, 3)
+
+    # ---- residual functions over flattened params ---------------------------
+    # float32 product, as the JAX package forms it
+    sqrtI = runtime.const(
+        np.asarray(mcfg.motion_sqrt_information, np.float32)
+        * np.float32(mcfg.covariance_scaling_factor), dtype, dev)
+    dts = stamps[1:] - stamps[:-1]  # (W,)
+    w_imu, w_bias = mcfg.weight_imu, mcfg.weight_imu_bias
+
+    def aux_fn(p_flat):
+        # Both residuals broadcast over the W transitions.
+        p = p_flat.reshape(W + 1, 9)
+        r_mot = R.motion_residual(p[:-1], p[1:], dts, sqrtI)  # (W, 8)
+        r_imu = R.imu_residual(p[:-1], p[1:], dts, imu_meas, w_imu, w_bias)
+        return torch.cat([r_mot.reshape(-1), r_imu.reshape(-1)])
+
+    def residual_fn(p_flat):
+        p = p_flat.reshape(W + 1, 9)
+        pose_w = p[1:, :3]
+        r_ndt = R.ndt_residual(
+            pose_w[:, None, None, None, :], m_mean_b, m_cov_b,
+            assoc.mean, assoc.cov, use_intensity=use_int,
+        )  # (W, F, C, K)
+        return r_ndt.reshape(-1), aux_fn(p_flat)
+
+    ndt_valid = pair_valid.reshape(-1)
+    aux_valid = runtime.const(np.concatenate([
+        np.repeat(slot_active_np, 8),
+        np.repeat(slot_active_np & bool(mcfg.use_imu), 2),
+    ]), torch.bool, dev)
+
+    n_cells = torch.sum(
+        torch.where(slot_active[:, None], scans.valid, False).to(dtype))
+    ndt_scale = mcfg.ndt_weight / torch.clamp(n_cells * K, min=1.0)
+
+    # ---- structured linearizer ---------------------------------------------
+    # Each NDT residual depends only on the 3 pose params of its window slot,
+    # so its Jacobian row is 3 numbers, and the per-slot 3x3 JᵀWJ blocks are
+    # added into the (P, P) normal equations.  The exact derivatives come
+    # from reverse-mode autograd on per-residual copies of the parameters
+    # (one backward pass gives every row: each residual reads only its own
+    # copy).  The JAX package takes the same derivatives in forward mode
+    # (``jax.jacfwd``); under ``torch.func.jacfwd`` every elementwise op
+    # runs through Python decompositions, which would set the frame time.
+    active_f = active_mask.to(dtype)
+    scale_ = mcfg.loss_function_scale
+    alpha_ = mcfg.loss_function_convexity
+    wa = aux_valid.to(dtype)
+    P = (W + 1) * 9
+    NA = 10  # aux residuals per transition: 8 motion + 2 IMU
+    # aux Jacobian layout: transition j, component m -> row, and the column
+    # blocks of its two states
+    rows_np = np.array([[j * 8 + m if m < 8 else W * 8 + j * 2 + (m - 8)
+                         for m in range(NA)] for j in range(W)])
+    aux_rows = runtime.const(rows_np, torch.long, dev)
+    aux_cols = runtime.const(np.arange(W)[:, None].repeat(NA, 1), torch.long, dev)
+    # rows/cols of slot j's 3x3 pose block in the (P, P) system
+    blk = 9 * (np.arange(W)[:, None] + 1) + np.arange(3)  # (W, 3)
+    blk_r = runtime.const(np.broadcast_to(blk[:, :, None], (W, 3, 3)), torch.long, dev)
+    blk_c = runtime.const(np.broadcast_to(blk[:, None, :], (W, 3, 3)), torch.long, dev)
+    blk_g = runtime.const(blk, torch.long, dev)
+    af_blk = active_f[blk_g]  # (W, 3)
+
+    def slot_jacobian(pose_w):
+        """(r (W,F,C,K), dr/dpose (W,F,C,K,3)) at the slot poses (W, 3)."""
+        with torch.enable_grad():
+            pr = pose_w.detach()[:, None, None, None, :].expand(
+                W, Fm, C, K, 3).clone().requires_grad_(True)
+            r = R.ndt_residual(pr, m_mean_b, m_cov_b, assoc.mean, assoc.cov,
+                               use_intensity=use_int)
+            (J,) = torch.autograd.grad(r.sum(), pr)
+        return r.detach(), J
+
+    def aux_jacobian(p):
+        """(r_aux (Na,), J_aux (Na, P)): copy m of each transition's two
+        states yields component m of its residual."""
+        with torch.enable_grad():
+            s0 = p[:-1].detach()[:, None, :].expand(W, NA, 9).clone().requires_grad_(True)
+            s1 = p[1:].detach()[:, None, :].expand(W, NA, 9).clone().requires_grad_(True)
+            r_all = torch.cat([
+                R.motion_residual(s0, s1, dts[:, None], sqrtI),
+                R.imu_residual(s0, s1, dts[:, None], imu_meas[:, None], w_imu, w_bias),
+            ], dim=-1)  # (W, NA copies, NA components)
+            picked = torch.diagonal(r_all, dim1=1, dim2=2)  # (W, NA)
+            g0, g1 = torch.autograd.grad(picked.sum(), (s0, s1))
+        picked = picked.detach()
+        ra = torch.cat([picked[:, :8].reshape(-1), picked[:, 8:].reshape(-1)])
+        J = p.new_zeros((W * NA, W + 1, 9))
+        J[aux_rows, aux_cols] = g0
+        J[aux_rows, aux_cols + 1] = g1
+        return ra, J.reshape(W * NA, P)
+
+    def linearize_fn(p_flat, mu):
+        p = p_flat.reshape(W + 1, 9)
+        r_ndt, Jn = slot_jacobian(p[1:, :3])  # (W,F,C,K), (W,F,C,K,3)
+        w_ndt = ndt_scale * barron.weight(r_ndt * r_ndt, scale_, alpha_, mu)
+        w_ndt = torch.where(pair_valid, w_ndt, 0.0)
+        Hj = torch.einsum("wfck,wfcki,wfckj->wij", w_ndt, Jn, Jn)
+        gj = torch.einsum("wfck,wfcki->wi", w_ndt * r_ndt, Jn)
+
+        ra, Ja = aux_jacobian(p)
+        Jm = Ja * active_f[None, :]
+        JW = Jm * wa[:, None]
+        H = Jm.T @ JW
+        g = JW.T @ ra
+        H = H.index_put((blk_r, blk_c),
+                        Hj * af_blk[:, :, None] * af_blk[:, None, :], accumulate=True)
+        g = g.index_put((blk_g,), gj * af_blk, accumulate=True)
+        return H, g
+
+    res = solver.gnc_solve(
+        residual_fn,
+        linearize_fn,
+        states.reshape(-1),
+        active_mask,
+        angle_mask,
+        ndt_valid,
+        aux_valid,
+        ndt_scale,
+        mcfg.loss_function_scale,
+        mcfg.loss_function_convexity,
+        mcfg.gnc_steps,
+        mcfg.gnc_control_parameter_divisor,
+        mcfg.lm_max_iterations,
+        mcfg.lm_tolerance,
+        lm_ftol=mcfg.lm_function_tolerance,
+    )
+    new_states = res.params.reshape(W + 1, 9)
+
+    # ---- pose-jump rejection (``ndt_matcher.cpp:411-422``) -----------------
+    newest = new_states[-1]
+    dx = torch.abs(newest[R.X] - prior_pose[0])
+    dy = torch.abs(newest[R.Y] - prior_pose[1])
+    dth = torch.abs(normalize_angle(newest[R.TH] - prior_pose[2]))
+    reject = (
+        (dx > mcfg.pose_reject_translation)
+        | (dy > mcfg.pose_reject_translation)
+        | (dth > mcfg.pose_reject_rotation)
+    )
+    prev = new_states[-2]
+    zero = torch.zeros_like(newest[R.X])
+    fallback = torch.stack([
+        prev[R.X], prev[R.Y], prev[R.TH], zero, zero, zero, zero, zero,
+        prev[R.BIAS],
+    ])
+    new_states = torch.cat(
+        [new_states[:-1], torch.where(reject, fallback, newest)[None]], dim=0)
+
+    return WindowEstimate(
+        states=new_states,
+        rejected=reject,
+        cost=res.cost,
+        n_residuals=res.n_ndt_valid,
+    )

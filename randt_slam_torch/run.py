@@ -1,0 +1,136 @@
+"""Command-line entry point of the PyTorch port (offline odometry).
+
+Offline odometry replay over a synthetic world or a converted ``.npz``
+sequence, with the trajectory exports and metrics of
+``randt_slam_tpu/run.py``: TUM + KITTI trajectories (per-frame odometry and
+nodes) and ``metrics.json`` (odometry ATE/RPE against ground truth, frames/s).
+
+Usage:
+    python -m randt_slam_torch.run --input synthetic --config synthetic \\
+        --odometry-only --output /tmp/t [--device cpu]
+
+Loop closure, pose-graph optimization, the OGM and online mode arrive in
+later slices of the port; asking for them exits with an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--input", required=True,
+                   help="'synthetic' or path to a converted .npz sequence")
+    p.add_argument("--config", default="oxford",
+                   choices=["oxford", "indoor", "synthetic"],
+                   help="configuration preset")
+    p.add_argument("--output", required=True, help="output directory")
+    p.add_argument("--frames", type=int, default=None, help="frame cap")
+    p.add_argument("--odometry-only", action="store_true",
+                   help="run phase A only (required in this slice)")
+    p.add_argument("--loop", action="store_true",
+                   help="closed-loop synthetic trajectory (later slice)")
+    p.add_argument("--ogm", action="store_true", help="render the OGM (later slice)")
+    p.add_argument("--online", action="store_true",
+                   help="incremental mode (later slice)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default=None,
+                   help="torch device; default cuda (which must exist)")
+    return p
+
+
+def load_config(args):
+    from . import config as CFG
+
+    if args.config == "oxford":
+        return CFG.oxford_config()
+    if args.config == "indoor":
+        return CFG.indoor_config()
+    return CFG.synthetic_config()
+
+
+def load_frames(args, device):
+    from .io import oxford, synthetic
+    from .pipeline import slam
+
+    if args.input == "synthetic":
+        seq = synthetic.generate(seed=args.seed, n_frames=args.frames or 120,
+                                 n_azimuths=256, n_bins=256)
+    else:
+        seq = oxford.load_npz_sequence(args.input, max_frames=args.frames)
+    frames = slam.frames_from_arrays(
+        seq.intensity, seq.azimuths, seq.ranges, seq.stamps,
+        imu_yaw=seq.imu_yaw, device=device,
+    )
+    return frames, seq.gt_poses, seq.stamps
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    later = [flag for flag, on in (("--loop", args.loop), ("--ogm", args.ogm),
+                                   ("--online", args.online)) if on]
+    if not args.odometry_only or later:
+        what = ", ".join(later) if later else "full SLAM (without --odometry-only)"
+        print(f"randt_slam_torch.run: {what} arrives in a later slice of the "
+              "port; this slice runs --odometry-only", file=sys.stderr)
+        return 2
+
+    import numpy as np
+
+    from . import runtime
+    from .io import formats
+    from .pipeline import slam
+
+    device = runtime.resolve_device(args.device)
+    os.makedirs(args.output, exist_ok=True)
+    cfg = load_config(args)
+    frames, gt_poses, stamps = load_frames(args, device)
+    t0 = time.perf_counter()
+    res = slam.run_odometry(cfg, frames, device=device)
+    wall = time.perf_counter() - t0
+    odom = res.odom_poses
+    T = len(odom)
+
+    formats.write_tum(os.path.join(args.output, "odom_tum.txt"), stamps, odom)
+    formats.write_kitti(os.path.join(args.output, "odom_kitti.txt"), odom)
+    formats.write_tum(os.path.join(args.output, "slam_tum.txt"),
+                      res.node_stamp, res.node_pose)
+    formats.write_kitti(os.path.join(args.output, "slam_kitti.txt"),
+                        res.node_pose)
+
+    metrics = {
+        "frames": T,
+        "wall_s": round(wall, 3),
+        "frames_per_second": round(T / wall, 2),
+        "device": str(device),
+        "n_nodes": int(len(res.node_pose)),
+        "n_loop_closures": 0,
+        "saturation": res.saturation,
+    }
+    if gt_poses is not None:
+        metrics["odom_ate_m"] = round(formats.ate(odom, gt_poses[:T]), 4)
+        metrics["slam_ate_m"] = round(
+            formats.ate(res.node_pose, gt_poses[res.node_frame]), 4)
+        t_rpe, r_rpe = formats.rpe(odom, gt_poses[:T])
+        metrics["odom_rpe_m"] = round(t_rpe, 4)
+        metrics["odom_rpe_deg"] = round(r_rpe, 4)
+        kt, kr = formats.kitti_drift(odom, gt_poses[:T])
+        metrics["odom_kitti_trans_pct"] = round(kt, 4)
+        metrics["odom_kitti_rot_degp100m"] = round(kr, 4)
+    # NaN (e.g. KITTI drift on paths shorter than 100 m) is not valid JSON
+    metrics = {k: (None if isinstance(v, float) and np.isnan(v) else v)
+               for k, v in metrics.items()}
+    with open(os.path.join(args.output, "metrics.json"), "w") as f:
+        json.dump(metrics, f, indent=2)
+    print(json.dumps(metrics, indent=2))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,124 @@
+"""Contract of the PyTorch port.
+
+* It imports nothing of JAX or of the JAX package (checked in a fresh
+  interpreter that imports every submodule, and in the sources).
+* Entry points run on CUDA unless asked for the CPU: with no device and no
+  CUDA they raise instead of dropping to the CPU.
+* Its configuration presets equal the JAX package's field by field.
+* The CLI runs odometry and refuses what later slices bring.
+"""
+
+import ast
+import dataclasses
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from randt_slam_tpu import config as jcfg
+from randt_slam_torch import config as tcfg
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "randt_slam_torch"
+
+
+def _py_files():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_import_graph_has_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import randt_slam_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'randt_slam_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'randt_slam_tpu'))]\n"
+        "assert not bad, bad\n"
+        "print('ok', len([m for m in sys.modules if m.startswith('randt_slam_torch')]))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("path", _py_files(), ids=lambda p: p.name)
+def test_sources_import_no_jax(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for n in names:
+            assert n.split(".")[0] not in ("jax", "jaxlib", "randt_slam_tpu"), (path, n)
+
+
+def test_entry_points_need_a_device_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    from randt_slam_torch.pipeline import frontend, slam
+
+    cfg = tcfg.synthetic_config()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        frontend.init_carry(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        slam.frames_from_arrays(np.zeros((1, 4, 8), np.float32), np.zeros(4),
+                                np.arange(8.0), np.zeros(1))
+    frames = slam.frames_from_arrays(np.zeros((1, 4, 8), np.float32), np.zeros(4),
+                                     np.arange(8.0), np.zeros(1), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        slam.run_odometry(cfg, frames)
+
+
+@pytest.mark.parametrize("preset", ["synthetic_config", "oxford_config",
+                                    "indoor_config"])
+def test_config_presets_equal_the_jax_package(preset):
+    a = dataclasses.asdict(getattr(tcfg, preset)())
+    b = dataclasses.asdict(getattr(jcfg, preset)())
+    assert a == b
+
+
+@pytest.mark.parametrize("source", ["synthetic", "npz"])
+def test_cli_odometry_only(tmp_path, source):
+    out = tmp_path / "run"
+    inp = "synthetic"
+    if source == "npz":  # a converted sequence: float16 scans, ground truth
+        from randt_slam_torch.io import synthetic
+
+        seq = synthetic.generate(seed=1, n_frames=8, n_azimuths=256, n_bins=256)
+        inp = str(tmp_path / "seq.npz")
+        np.savez(inp, intensity=seq.intensity.astype(np.float16),
+                 azimuths=seq.azimuths, ranges=seq.ranges, stamps=seq.stamps + 100.0,
+                 gt_poses=seq.gt_poses)
+    cmd = [sys.executable, "-m", "randt_slam_torch.run", "--input", inp,
+           "--config", "synthetic", "--odometry-only", "--frames", "8",
+           "--device", "cpu", "--output", str(out)]
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    for f in ("odom_tum.txt", "odom_kitti.txt", "slam_tum.txt", "slam_kitti.txt",
+              "metrics.json"):
+        assert (out / f).exists(), f
+    m = json.loads((out / "metrics.json").read_text())
+    assert m["frames"] == 8 and m["device"] == "cpu"
+    assert np.isfinite(m["odom_ate_m"]) and m["odom_ate_m"] < 2.0
+    assert len((out / "odom_tum.txt").read_text().splitlines()) == 8
+
+
+@pytest.mark.parametrize("extra", [[], ["--odometry-only", "--loop"],
+                                   ["--odometry-only", "--ogm"],
+                                   ["--odometry-only", "--online"]])
+def test_cli_refuses_later_slices(tmp_path, extra):
+    cmd = [sys.executable, "-m", "randt_slam_torch.run", "--input", "synthetic",
+           "--device", "cpu", "--output", str(tmp_path / "x"), *extra]
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert "later slice" in res.stderr

@@ -2,27 +2,40 @@
 
     python3 chip_smoke.py
 
+Two paths of offline odometry at the Oxford configuration run: with the
+kernel switches off (``oxford_config()``: the scan kernels K1 and K2, the LM
+loop in autograd and ``solve_ex``) and on (``use_pallas_linearize`` and
+``use_pallas_chol``: also the fused linearize/cost kernels K3a/K3b and the
+Cholesky kernel K4 in the LM loop).
+
 Phases (any failed check raises and the script exits non-zero):
 
 1. the card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and
    power limit;
-2. the CUDA kernels of the main path (``randt_slam_torch/csrc``) build with
+2. the CUDA kernels of both paths (``randt_slam_torch/csrc``) build with
    nvcc, all sources at once;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of one Oxford-geometry frame (400 azimuths x 1157 range bins), on seeded
-   random inputs and on a rendered frame; its time (CUDA events), the plain
-   version's, a one-call PyTorch yardstick and the least time the card could
-   take for the same work;
-4. the main path: ``run_odometry`` with ``oxford_config()`` over 160 rendered
-   frames of that geometry; every kernel must launch once per frame, all
-   poses finite, odometry ATE against the rendered ground truth within the
-   band below; steady frames/s and ms/frame, timed inside the run, and the
-   host's CPU model, clock and load beside them;
-5. the first 20 frames twice on the card (bitwise-identical poses) and once
-   on the CPU (identical node/edge tables, poses within 1e-2 m and 1e-3 rad
-   on every frame);
-6. a short ``torch.profiler`` window: device busy share, the kernels that
-   take the device time, and host and device time per layer of the port.
+   random inputs and on a rendered frame (K3a/K3b/K4: the inputs of that
+   frame's LM solve, captured on the switches-on path); its time (CUDA
+   events), the plain version's, a one-call PyTorch yardstick where one
+   exists and the least time the card could take for the same work;
+4. per path, ``run_odometry`` over 160 rendered frames of that geometry:
+   exact launch counts (K1 and K2 once per frame; per ``estimate_window``
+   call K3a and K4 gnc_steps x lm_max_iterations times and K3b
+   2 + gnc_steps x (1 + lm_max_iterations) times on the switches-on path,
+   none of them on the other), all poses finite, odometry ATE against the
+   rendered ground truth within the band below; steady frames/s and
+   ms/frame, timed inside the run, and the host's CPU model, clock and load
+   beside them;
+5. per path, the first 20 frames twice on the card (bitwise-identical poses)
+   and once on the CPU, where the kernels' plain versions run (identical
+   node/edge tables, poses within 1e-2 m and 1e-3 rad on every frame);
+6. per path, a short ``torch.profiler`` window: device busy share, launches
+   per LM iteration, the kernels that take the device time, and host and
+   device time per layer of the port; the switches-on window must hold no
+   LU (``getrf``/``getrs``) kernel and no autograd pass over the NDT
+   residuals (``randt.ndt_autograd``).
 
 The second-to-last line of the output is the kernels' JSON record, the last
 line ``{"ok": true, "device": {...}}``.
@@ -46,6 +59,16 @@ N_SHORT = 20
 ATE_BAND_M = 0.25       # odometry ATE over the 160 frames (~160 m driven)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOPS = 67e12          # H100 SXM, non-tensor float32, published
+CAPTURE_FRAME = 10          # the frame whose LM-solve inputs K3a/K3b/K4 check
+SWITCHES_ON = {"matcher.use_pallas_linearize": True,
+               "matcher.use_pallas_chol": True}
+# float operations per pair, counted from csrc/ndt_linearize.cu with sqrt,
+# division and powf as one each: the pair math (residual, S^-1 d, dS/dtheta)
+# ~130, the Jacobian, weight and the ten sums ~70 more for K3a; the residual
+# and the two reductions ~10 more for K3b
+K3A_FLOPS_PER_PAIR = 200
+K3B_FLOPS_PER_PAIR = 140
+K3_REL = 1e-4   # K3a/K3b sums against plain, relative to their scale
 
 
 def render_frames(n_frames, seed=0):
@@ -206,8 +229,211 @@ def check_k2(k2_sets, dev):
     return dict(max_abs_err=err, bound_ms=b, bound_by=by, **t)
 
 
-def profile_frames(cfg, frames, n, dev):
-    """Device busy share and top kernels over ``n`` frames."""
+def capture_solve_inputs(cfg, frames, dev, frame):
+    """Run ``frames`` on the switches-on path and keep the K3a inputs of
+    every LM iteration of ``frame`` (its pair packs, slot poses, mu and NDT
+    scale) and the damped systems K4 solves there.  Returns the result and
+    the captured inputs."""
+    from randt_slam_torch.ops import ndt_linearize as NL
+    from randt_slam_torch.ops import small_chol
+    from randt_slam_torch.pipeline import slam
+
+    now, lin, chol = [-1], [], []
+    orig_lin, orig_chol = NL.linearize, small_chol.chol_solve
+
+    def spy_lin(poses, mu, ndt_scale, packed, *a, **k):
+        if now[0] == frame:
+            lin.append((poses.clone(), mu.clone(), ndt_scale.clone(),
+                        tuple(x.clone() for x in packed)))
+        return orig_lin(poses, mu, ndt_scale, packed, *a, **k)
+
+    def spy_chol(A, b):
+        if now[0] == frame:
+            chol.append((A.clone(), b.clone()))
+        return orig_chol(A, b)
+
+    NL.linearize, small_chol.chol_solve = spy_lin, spy_chol
+    try:
+        res = slam.run_odometry(cfg, frames, device=dev,
+                                on_frame=lambda t, c: now.__setitem__(0, t))
+    finally:
+        NL.linearize, small_chol.chol_solve = orig_lin, orig_chol
+    if not lin or len(chol) != len(lin):
+        raise AssertionError(f"captured {len(lin)} linearizations and {len(chol)} "
+                             f"solves in frame {frame}")
+    return res, lin, chol
+
+
+def check_k3(k3_sets, cfg, dev):
+    """K3a/K3b against their plain versions: every sum within K3_REL of its
+    scale (the sum of the absolute values of its per-pair terms), the max
+    within 1e-5 of itself, two launches bitwise equal, a NaN pair passed on
+    to its slot's cost and max as the plain version does."""
+    import torch
+
+    from randt_slam_torch.ops import ndt_linearize as NL
+    from randt_slam_torch.registration import matcher
+
+    sc, al = cfg.matcher.loss_function_scale, cfg.matcher.loss_function_convexity
+    err_a = err_b = worst_a = worst_b = 0.0
+    for pose4, mu, ns, packed in k3_sets:
+        H, g, rho = NL.linearize_cuda(pose4, mu, ns, packed, sc, al)
+        H2, g2, rho2 = NL.linearize_cuda(pose4, mu, ns, packed, sc, al)
+        Hp, gp, rhop = NL.linearize_plain(pose4, mu, ns, packed, sc, al)
+        Hs, gs, rhos = NL.sums_to_blocks(
+            NL.linearize_terms(pose4, mu, ns, packed, sc, al).abs().sum(-1))
+        c, m = NL.robust_cost_cuda(pose4, mu, packed, sc, al)
+        c2, m2 = NL.robust_cost_cuda(pose4, mu, packed, sc, al)
+        cp, mp = NL.robust_cost_plain(pose4, mu, packed, sc, al)
+        cs = NL.robust_cost_terms(pose4, mu, packed, sc, al)[0].abs().sum(-1)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in ((H, H2), (g, g2), (rho, rho2))):
+            raise AssertionError("K3a: two launches are not bitwise identical")
+        if not (torch.equal(c, c2) and torch.equal(m, m2)):
+            raise AssertionError("K3b: two launches are not bitwise identical")
+        for a, b, s in ((H, Hp, Hs), (g, gp, gs), (rho, rhop, rhos)):
+            worst_a = max(worst_a, float(((a - b).abs() / s.clamp(min=1e-30)).max()))
+            err_a = max(err_a, float((a - b).abs().max()))
+        worst_b = max(worst_b, float(((c - cp).abs() / cs.clamp(min=1e-30)).max()))
+        err_b = max(err_b, float((c - cp).abs().max()))
+        if not bool(((m - mp).abs() <= 1e-5 * mp).all()):
+            raise AssertionError("K3b: r2max differs from plain beyond 1e-5 of itself")
+        err_b = max(err_b, float((m - mp).abs().max()))
+    if not (worst_a <= K3_REL and worst_b <= K3_REL):
+        raise AssertionError(f"K3a/K3b differ from plain by {worst_a:.2e}/{worst_b:.2e} "
+                             f"of their scale (limit {K3_REL})")
+    # a non-finite valid pair in slot 1: the cost sum and the max pass the
+    # NaN on in that slot, as the plain version does
+    pose4, mu, ns, packed = k3_sets[0]
+    nan_packed = tuple(x.clone() for x in packed)
+    first = int(torch.nonzero(packed[4][1, 0] > 0)[0])
+    nan_packed[2][1, 0, first] = float("nan")
+    c, m = NL.robust_cost_cuda(pose4, mu, nan_packed, sc, al)
+    cp, mp = NL.robust_cost_plain(pose4, mu, nan_packed, sc, al)
+    if not (bool(m[1].isnan()) and torch.equal(c.isnan(), cp.isnan())
+            and torch.equal(m.isnan(), mp.isnan())):
+        raise AssertionError(f"K3b: a NaN pair gives {c.tolist()}, {m.tolist()}; "
+                             f"plain {cp.tolist()}, {mp.tolist()}")
+
+    pose4, mu, ns, packed = k3_sets[-1]
+    W, N = packed[0].shape[0], packed[0].shape[-1]
+    # the switches-off path's linearization of the same pairs: autograd
+    # Jacobian plus the two einsums, with the pairs unpacked to (W,1,N,1,...)
+    mm, mc, am, ac, v = packed
+    ij = NL.SYM6 + ((1, 0), (2, 0), (2, 1))
+    src = list(range(6)) + [1, 2, 4]
+
+    def full(c6):
+        out = torch.empty(W, N, 3, 3, device=dev)
+        for (i, j), k in zip(ij, src):
+            out[..., i, j] = c6[:, k]
+        return out.reshape(W, 1, N, 1, 3, 3)
+
+    un = (mm.transpose(1, 2).reshape(W, 1, N, 1, 3), full(mc),
+          am.transpose(1, 2).reshape(W, 1, N, 1, 3), full(ac),
+          (v[:, 0] > 0).reshape(W, 1, N, 1))
+    poses = torch.stack([pose4[:, 0], pose4[:, 1],
+                         torch.atan2(pose4[:, 3], pose4[:, 2])], 1)
+    autograd_ms = device_ms(lambda: matcher.ndt_blocks_autograd(
+        poses, un[0], un[1], un[2], un[3], un[4], ns, sc, al, mu), reps=20)
+    ta = dict(ms=device_ms(lambda: NL.linearize_cuda(pose4, mu, ns, packed, sc, al)),
+              plain_ms=device_ms(lambda: NL.linearize_plain(pose4, mu, ns, packed, sc, al)),
+              library_ms=None)
+    tb = dict(ms=device_ms(lambda: NL.robust_cost_cuda(pose4, mu, packed, sc, al)),
+              plain_ms=device_ms(lambda: NL.robust_cost_plain(pose4, mu, packed, sc, al)),
+              library_ms=None)
+    # the least either must move: the valid weight of every pair, the other
+    # 18 floats of the valid pairs only (an invalid pair has weight 0 and
+    # finite values, so it adds nothing), the pose and the scalars read
+    # once, the outputs written once; the pair math only for valid pairs
+    n_valid = int((v > 0).sum())
+    nbytes_in = W * N * 4 + n_valid * 18 * 4 + W * 4 * 4
+    nbytes_a = nbytes_in + 2 * 4 + W * 13 * 4
+    nbytes_b = nbytes_in + 4 + W * 2 * 4
+    ba, bya = bound_ms(nbytes_a, n_valid * K3A_FLOPS_PER_PAIR)
+    bb, byb = bound_ms(nbytes_b, n_valid * K3B_FLOPS_PER_PAIR)
+    print(f"K3a ndt_linearize: within {worst_a:.2e} of each sum's scale of plain "
+          f"(limit {K3_REL}), two launches bitwise equal, on {len(k3_sets)} inputs "
+          f"(W={W}, N={N}); kernel {ta['ms'] * 1e3:.2f} us, plain "
+          f"{ta['plain_ms'] * 1e3:.2f} us, no one-call library yardstick (for "
+          f"information, the switches-off linearization of the same pairs, "
+          f"autograd Jacobian and einsums: {autograd_ms * 1e3:.2f} us), bound "
+          f"{ba * 1e3:.4f} us ({bya}, {nbytes_a} B, {n_valid} of {W * N} pairs "
+          f"valid in frame {CAPTURE_FRAME}'s last linearization)", flush=True)
+    print(f"K3b ndt_robust_cost: within {worst_b:.2e} of the sum's scale of plain, "
+          f"r2max within 1e-5, two launches bitwise equal, a NaN pair passed on "
+          f"as plain passes it; kernel "
+          f"{tb['ms'] * 1e3:.2f} us, plain {tb['plain_ms'] * 1e3:.2f} us, no "
+          f"one-call library yardstick, bound {bb * 1e3:.4f} us ({byb}, "
+          f"{nbytes_b} B)", flush=True)
+    return (dict(max_abs_err=err_a, bound_ms=ba, bound_by=bya, **ta),
+            dict(max_abs_err=err_b, bound_ms=bb, bound_by=byb, **tb))
+
+
+def check_k4(systems, dev):
+    """K4 against its plain version and a float64 solve, on the damped,
+    Jacobi-scaled systems of one frame's LM solve: both within the
+    float32 Cholesky forward-error bound 4 P eps kappa |x|, and the
+    residual |A x - b| within 4 P eps |A| |x|."""
+    import torch
+
+    from randt_slam_torch.ops import small_chol as K4
+
+    A = torch.stack([a for a, _ in systems]).contiguous()
+    b = torch.stack([x for _, x in systems]).contiguous()
+    P = A.shape[-1]
+    x = K4.chol_solve_cuda(A, b)
+    x2 = K4.chol_solve_cuda(A, b)
+    one = torch.stack([K4.chol_solve_cuda(A[i].contiguous(), b[i].contiguous())
+                       for i in range(A.shape[0])])
+    xp = K4.chol_solve_plain(A, b)
+    x64 = torch.linalg.solve(A.double(), b.double())
+    kappa = torch.linalg.cond(A.double())
+    torch.cuda.synchronize()
+    if not (torch.equal(x, x2) and torch.equal(x, one)):
+        raise AssertionError("K4: launches are not bitwise identical (batch, repeat, one by one)")
+    bound = 4 * P * float(np.finfo(np.float32).eps) * kappa * x64.abs().amax(-1)
+    e64 = (x.double() - x64).abs().amax(-1)
+    ep = (x - xp).double().abs().amax(-1)
+    if not bool(((e64 <= bound) & (ep <= bound)).all()):
+        raise AssertionError(f"K4: off the bound (float64 {float((e64 / bound).max()):.2f}, "
+                             f"plain {float((ep / bound).max()):.2f} of it)")
+    # the residual of a backward-stable solve, independent of kappa
+    res = (A.double() @ x.double()[..., None])[..., 0] - b.double()
+    res_bound = (4 * P * float(np.finfo(np.float32).eps) * A.abs().amax((-2, -1))
+                 * x.abs().amax(-1)).double()
+    res_share = float((res.abs().amax(-1) / res_bound).max())
+    if not res_share <= 1.0:
+        raise AssertionError(f"K4: residual |Ax - b| at {res_share:.2f} of 4 P eps |A| |x|")
+    n_ident = int((A[0].diagonal() == 1.0).sum())
+    A1, b1 = A[-1].contiguous(), b[-1].contiguous()
+    t = dict(ms=device_ms(lambda: K4.chol_solve_cuda(A1, b1)),
+             plain_ms=device_ms(lambda: K4.chol_solve_plain(A1, b1)),
+             library_ms=device_ms(lambda: torch.linalg.solve_ex(A1, b1)))
+    chol_lib = device_ms(lambda: torch.cholesky_solve(
+        b1[:, None], torch.linalg.cholesky_ex(A1)[0]))
+    # the least it must move: the lower triangle of A (an SPD solve reads one
+    # triangle), b read once, x written once
+    nbytes = (P * (P + 1) // 2 + 2 * P) * 4
+    flops = 2 * P ** 3 // 3 + 2 * P * P
+    bd, by = bound_ms(nbytes, flops)
+    print(f"K4 chol_solve: {A.shape[0]} systems of frame {CAPTURE_FRAME} (P={P}, "
+          f"kappa {float(kappa.min()):.3g}..{float(kappa.max()):.3g}, {n_ident} "
+          f"diagonal entries exactly 1 in the first); within "
+          f"{float((e64 / bound).max()):.3f} of the bound of a float64 solve and "
+          f"{float((ep / bound).max()):.3f} of plain; residual within "
+          f"{res_share:.3f} of 4 P eps |A| |x|; batch, repeat and one by one "
+          f"bitwise equal; kernel {t['ms'] * 1e3:.2f} us, plain "
+          f"{t['plain_ms'] * 1e3:.2f} us, torch.linalg.solve_ex {t['library_ms'] * 1e3:.2f} "
+          f"us, cholesky_ex + cholesky_solve {chol_lib * 1e3:.2f} us, bound "
+          f"{bd * 1e3:.4f} us ({by}, {nbytes} B, {flops} flops)", flush=True)
+    return dict(max_abs_err=float((x - xp).abs().max()), bound_ms=bd, bound_by=by, **t)
+
+
+def profile_frames(label, cfg, frames, n, dev):
+    """Device busy share, launches per LM iteration, top kernels and the
+    port's layers over the first ``n`` frames (frame 0 is not solved).
+    Returns the device kernel names and the layer ranges seen."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -224,25 +450,33 @@ def profile_frames(cfg, frames, n, dev):
     # rows carry the same device time again
     rows = []
     total = 0.0
+    layers = {}
     for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA") or e.key.startswith("randt."):
-            continue  # host rows, and the device spans of the layer ranges
+        if e.key.startswith("randt."):
+            if not str(e.device_type).endswith("CUDA"):
+                layers[e.key] = e
+            continue  # the device spans of the layer ranges
+        if not str(e.device_type).endswith("CUDA"):
+            continue
         rows.append((e.self_device_time_total, e.count, e.key))
         total += e.self_device_time_total
     rows.sort(reverse=True)
     busy = total / 1e6 / wall if wall > 0 else float("nan")
-    print(f"profile over {n} frames: wall {wall * 1e3:.1f} ms, device busy "
-          f"{total / 1e3:.1f} ms ({100 * busy:.1f}% of wall), "
-          f"{sum(r[1] for r in rows)} device launches", flush=True)
+    launches = sum(r[1] for r in rows)
+    lm_iters = (n - 1) * cfg.matcher.gnc_steps * cfg.matcher.lm_max_iterations
+    print(f"profile, switches {label}, over {n} frames: wall {wall * 1e3:.1f} ms, "
+          f"device busy {total / 1e3:.1f} ms ({100 * busy:.1f}% of wall), {launches} "
+          f"device launches = {launches / lm_iters:.1f} per LM iteration of the "
+          f"{n - 1} solved frames", flush=True)
     for dt, cnt, key in rows[:12]:
         print(f"  {dt / 1e3:9.3f} ms  {cnt:7d} x  {key[:90]}", flush=True)
     # the port's layers (``randt.*`` profiler ranges): host time inside each,
     # and the device time of the kernels it launched
-    for e in prof.key_averages():
-        if e.key.startswith("randt.") and not str(e.device_type).endswith("CUDA"):
-            print(f"  layer {e.key:22s} {e.count:4d} calls: host "
-                  f"{e.cpu_time_total / 1e3 / n:8.2f} ms/frame, device "
-                  f"{e.device_time_total / 1e3 / n:7.2f} ms/frame", flush=True)
+    for key, e in layers.items():
+        print(f"  layer {key:22s} {e.count:4d} calls: host "
+              f"{e.cpu_time_total / 1e3 / n:8.2f} ms/frame, device "
+              f"{e.device_time_total / 1e3 / n:7.2f} ms/frame", flush=True)
+    return [r[2] for r in rows], set(layers)
 
 
 def host_cpu() -> str:
@@ -268,6 +502,133 @@ def host_cpu() -> str:
             f"cores; {clock}; load average {load}")
 
 
+def run_path(label, cfg, frames, short, first, gt, dev, scans, az, ranges, stamps):
+    """Phases 4-6 for one switch setting; returns the main run's launch
+    counts."""
+    import torch
+
+    from randt_slam_torch.io import formats
+    from randt_slam_torch.ops import build
+    from randt_slam_torch.pipeline import slam
+    from randt_slam_torch.registration import matcher
+
+    # ---- 5. (first part) two CUDA runs of the first frames ------------------
+    t0 = time.perf_counter()
+    r_a = first if first is not None else slam.run_odometry(cfg, short, device=dev)
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r_b = slam.run_odometry(cfg, short, device=dev)
+    wall_short = time.perf_counter() - t0
+    for k in ("odom_poses", "node_pose", "edge_trans"):
+        if not np.array_equal(getattr(r_a, k), getattr(r_b, k)):
+            raise AssertionError(f"switches {label}: two CUDA runs differ in {k}")
+    print(f"switches {label}: two CUDA runs of {N_SHORT} frames: bitwise-identical "
+          f"poses ({'captured above' if first is not None else f'{cold:.2f} s cold'}, "
+          f"{wall_short:.2f} s warm)", flush=True)
+
+    # ---- 4. the main path ----------------------------------------------------
+    print(f"host before the main path: {host_cpu()}", flush=True)
+    marks, cpu_marks, solves = [], [], [0]
+
+    def mark(t, carry):
+        # the steady window opens with the device drained at frame N_SHORT;
+        # every frame's host issue time is kept without a sync
+        if t == N_SHORT:
+            torch.cuda.synchronize()
+            cpu_marks.extend((time.process_time(), time.thread_time()))
+        marks.append(time.perf_counter())
+
+    estimate_window = matcher.estimate_window
+
+    def counted(*a, **k):
+        solves[0] += 1
+        return estimate_window(*a, **k)
+
+    matcher.estimate_window = counted
+    try:
+        build.reset_launches()
+        t0 = time.perf_counter()
+        res = slam.run_odometry(cfg, frames, device=dev, on_frame=mark)
+        t_end = time.perf_counter()
+        launches = dict(build.LAUNCHES)
+    finally:
+        matcher.estimate_window = estimate_window
+    proc_s, thread_s = time.process_time() - cpu_marks[0], time.thread_time() - cpu_marks[1]
+    wall = t_end - t0
+    m = cfg.matcher
+    lin = bool(m.use_pallas_linearize and m.use_intensity_as_dimension)
+    iters = m.gnc_steps * m.lm_max_iterations
+    want = {"row_windows": N_FRAMES, "segment_topk_moments": N_FRAMES,
+            "ndt_linearize": solves[0] * iters if lin else 0,
+            "ndt_robust_cost": solves[0] * (2 + m.gnc_steps * (1 + m.lm_max_iterations))
+            if lin else 0,
+            "chol_solve": solves[0] * iters if m.use_pallas_chol else 0}
+    if launches != want:
+        raise AssertionError(f"switches {label}: launches {launches} over {N_FRAMES} "
+                             f"frames and {solves[0]} window solves, expected {want}")
+    per_solve = {k: v / solves[0] for k, v in launches.items() if k in
+                 ("ndt_linearize", "ndt_robust_cost", "chol_solve")}
+    if not np.all(np.isfinite(res.odom_poses)) or res.odom_poses.shape != (N_FRAMES, 3):
+        raise AssertionError("odometry poses are not finite / of the expected shape")
+    ate = formats.ate(res.odom_poses, gt)
+    t_rpe, r_rpe = formats.rpe(res.odom_poses, gt)
+    # frames N_SHORT..N-1, from the drained device at frame N_SHORT to the
+    # end of run_odometry (its flush and the one copy of the outputs)
+    steady_ms = (t_end - marks[N_SHORT]) / (N_FRAMES - N_SHORT) * 1e3
+    issue = np.diff(marks[N_SHORT:]) * 1e3
+    print(f"main path, switches {label}: {N_FRAMES} frames in {wall:.2f} s; steady "
+          f"(frames {N_SHORT}..{N_FRAMES - 1}, timed inside the run) {steady_ms:.1f} "
+          f"ms/frame = {1e3 / steady_ms:.3f} frames/s; host issue time per frame "
+          f"median {np.median(issue):.1f} ms, min {issue.min():.1f}, max "
+          f"{issue.max():.1f}; warm {N_SHORT}-frame run "
+          f"{wall_short / N_SHORT * 1e3:.1f} ms/frame; launches {launches} "
+          f"({solves[0]} window solves; per solve {per_solve}); "
+          f"{len(res.node_id)} nodes, {res.n_submaps} submaps, "
+          f"{int(res.rejected_frames.sum())} rejected frames", flush=True)
+    # CPU time over the steady window: near the wall when the host thread
+    # ran all along (a slower run then spent more CPU per frame), well below
+    # it when the thread waited (the device, or other work on the host)
+    window_s = t_end - marks[N_SHORT]
+    print(f"host after the main path: {host_cpu()}; CPU time over the steady "
+          f"window: main thread {thread_s / window_s * 100:.1f} % of the wall, "
+          f"whole process {proc_s / window_s * 100:.1f} %", flush=True)
+    print(f"switches {label}: odometry vs rendered ground truth: ATE {ate:.4f} m "
+          f"(band < {ATE_BAND_M} m), RPE {t_rpe:.4f} m / {r_rpe:.4f} deg", flush=True)
+    if not ate < ATE_BAND_M:
+        raise AssertionError(f"switches {label}: odometry ATE {ate:.3f} m outside the band")
+
+    # ---- 5. (second part) the CPU, where the plain versions run --------------
+    t0 = time.perf_counter()
+    frames_cpu = slam.frames_from_arrays(scans[:N_SHORT], az, ranges,
+                                         stamps[:N_SHORT], device="cpu")
+    r_cpu = slam.run_odometry(cfg, frames_cpu, device="cpu")
+    for k in ("node_id", "node_frame", "node_submap", "node_is_root",
+              "edge_begin", "edge_end"):
+        if not np.array_equal(getattr(r_cpu, k), getattr(r_a, k)):
+            raise AssertionError(f"switches {label}: CUDA and CPU {k} tables differ")
+    d = np.abs(r_cpu.odom_poses - r_a.odom_poses)
+    pos = d[:, :2].max(axis=1)
+    if not (d[:, 2].max() <= 1e-3 and pos.max() <= 1e-2):
+        raise AssertionError(f"switches {label}: CUDA and CPU poses differ: "
+                             f"{pos.max():.4f} m, {d[:, 2].max():.2e} rad")
+    print(f"switches {label}: CPU run of {N_SHORT} frames ({time.perf_counter() - t0:.1f} "
+          f"s): tables identical; poses within {pos.max():.2e} m / "
+          f"{d[:, 2].max():.2e} rad of the CUDA run", flush=True)
+
+    # ---- 6. profile ------------------------------------------------------------
+    names, layers = profile_frames(label, cfg, frames, 3, dev)
+    lu = sorted({k for k in names if "getrf" in k.lower() or "getrs" in k.lower()})
+    print(f"switches {label}: LU kernels in the window: {lu or 'none'}; NDT autograd "
+          f"range {'present' if 'randt.ndt_autograd' in layers else 'absent'}", flush=True)
+    if lin and "randt.ndt_autograd" in layers:
+        raise AssertionError("switches on: the NDT residuals went through autograd")
+    if m.use_pallas_chol and lu:
+        raise AssertionError(f"switches on: LU kernels ran: {lu}")
+    if not lin and "randt.ndt_autograd" not in layers:
+        raise AssertionError("switches off: no autograd linearization seen")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -284,7 +645,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from randt_slam_torch.config import oxford_config
-    from randt_slam_torch.io import formats
     from randt_slam_torch.ops import build
     from randt_slam_torch.pipeline import slam
 
@@ -329,100 +689,60 @@ def main() -> int:
     k1 = check_k1(k1_sets, dev)
     k2 = check_k2(k2_sets, dev)
 
-    # ---- 4./5. the main path ------------------------------------------------
+    # ---- 3. (cont.) K3a/K3b/K4 on the inputs of one frame's LM solve ---------
+    cfg_on = oxford_config(**SWITCHES_ON)
     frames = slam.frames_from_arrays(scans, az, ranges, stamps, device=dev)
     short = type(frames)(*(x[:N_SHORT] for x in frames))
     t0 = time.perf_counter()
-    r_a = slam.run_odometry(cfg, short, device=dev)
-    print(f"first {N_SHORT}-frame run (cold): {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    r_b = slam.run_odometry(cfg, short, device=dev)
-    wall_short = time.perf_counter() - t0
-    for k in ("odom_poses", "node_pose", "edge_trans"):
-        if not np.array_equal(getattr(r_a, k), getattr(r_b, k)):
-            raise AssertionError(f"two CUDA runs differ in {k}")
-    print(f"two CUDA runs of {N_SHORT} frames: bitwise-identical poses "
-          f"({wall_short:.2f} s warm)", flush=True)
+    # this run is also the first of phase 5's two switches-on CUDA runs
+    r_on, lin, chol = capture_solve_inputs(cfg_on, short, dev, CAPTURE_FRAME)
+    print(f"switches-on run of {N_SHORT} frames (cold, capturing frame "
+          f"{CAPTURE_FRAME}: {len(lin)} linearizations, {len(chol)} solves): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    from randt_slam_torch.ops import ndt_linearize as NL
+    W, N = lin[0][3][0].shape[0], lin[0][3][0].shape[-1]
+    rng3 = np.random.default_rng(3)
+    m_mean = rng3.uniform(-60, 60, (W, N, 3))
+    cov = rng3.normal(0, 0.5, (2, W, N, 3, 3))
+    cov = cov @ np.swapaxes(cov, -1, -2) + 0.05 * np.eye(3)
+    rand = [torch.tensor(x, dtype=torch.float32, device=dev) for x in
+            (m_mean, cov[0], m_mean + rng3.normal(0, 1.0, (W, N, 3)), cov[1])]
+    rand_packed = NL.pack_pairs(*rand, torch.from_numpy(rng3.random((W, N)) < 0.7).to(dev))
+    rand_pose = torch.tensor(rng3.normal(0, 0.3, (W, 3)), dtype=torch.float32, device=dev)
+    k3_sets = [(NL.pose_inputs(rand_pose), torch.tensor(2.0, device=dev),
+                torch.tensor(0.4, device=dev), rand_packed)]
+    k3_sets += [(NL.pose_inputs(poses), mu, ns, packed)
+                for poses, mu, ns, packed in (lin[0], lin[-1])]
+    k3a, k3b = check_k3(k3_sets, cfg_on, dev)
+    k4 = check_k4(chol, dev)
 
-    print(f"host before the main path: {host_cpu()}", flush=True)
-    marks, cpu_marks = [], []
-
-    def mark(t, carry):
-        # the steady window opens with the device drained at frame N_SHORT;
-        # every frame's host issue time is kept without a sync
-        if t == N_SHORT:
-            torch.cuda.synchronize()
-            cpu_marks.extend((time.process_time(), time.thread_time()))
-        marks.append(time.perf_counter())
-
-    build.reset_launches()
-    t0 = time.perf_counter()
-    res = slam.run_odometry(cfg, frames, device=dev, on_frame=mark)
-    t_end = time.perf_counter()
-    proc_s, thread_s = time.process_time() - cpu_marks[0], time.thread_time() - cpu_marks[1]
-    wall = t_end - t0
-    launches = dict(build.LAUNCHES)
-    for kname, cnt in launches.items():
-        if cnt != N_FRAMES:
-            raise AssertionError(f"{kname} launched {cnt} times over {N_FRAMES} frames")
-    if not np.all(np.isfinite(res.odom_poses)) or res.odom_poses.shape != (N_FRAMES, 3):
-        raise AssertionError("odometry poses are not finite / of the expected shape")
-    ate = formats.ate(res.odom_poses, gt)
-    t_rpe, r_rpe = formats.rpe(res.odom_poses, gt)
-    # frames N_SHORT..N-1, from the drained device at frame N_SHORT to the
-    # end of run_odometry (its flush and the one copy of the outputs)
-    steady_ms = (t_end - marks[N_SHORT]) / (N_FRAMES - N_SHORT) * 1e3
-    issue = np.diff(marks[N_SHORT:]) * 1e3
-    print(f"main path: {N_FRAMES} frames in {wall:.2f} s; steady (frames "
-          f"{N_SHORT}..{N_FRAMES - 1}, timed inside the run) {steady_ms:.1f} "
-          f"ms/frame = {1e3 / steady_ms:.3f} frames/s; host issue time per frame "
-          f"median {np.median(issue):.1f} ms, min {issue.min():.1f}, max "
-          f"{issue.max():.1f}; warm {N_SHORT}-frame run "
-          f"{wall_short / N_SHORT * 1e3:.1f} ms/frame; launches {launches}; "
-          f"{len(res.node_id)} nodes, {res.n_submaps} submaps, "
-          f"{int(res.rejected_frames.sum())} rejected frames", flush=True)
-    # CPU time over the steady window: near the wall when the host thread
-    # ran all along (a slower run then spent more CPU per frame), well below
-    # it when the thread waited (the device, or other work on the host)
-    window_s = t_end - marks[N_SHORT]
-    print(f"host after the main path: {host_cpu()}; CPU time over the steady "
-          f"window: main thread {thread_s / window_s * 100:.1f} % of the wall, "
-          f"whole process {proc_s / window_s * 100:.1f} %", flush=True)
-    print(f"odometry vs rendered ground truth: ATE {ate:.4f} m (band < "
-          f"{ATE_BAND_M} m), RPE {t_rpe:.4f} m / {r_rpe:.4f} deg", flush=True)
-    if not ate < ATE_BAND_M:
-        raise AssertionError(f"odometry ATE {ate:.3f} m outside the band")
-
-    t0 = time.perf_counter()
-    frames_cpu = slam.frames_from_arrays(scans[:N_SHORT], az, ranges,
-                                         stamps[:N_SHORT], device="cpu")
-    r_cpu = slam.run_odometry(cfg, frames_cpu, device="cpu")
-    for k in ("node_id", "node_frame", "node_submap", "node_is_root",
-              "edge_begin", "edge_end"):
-        if not np.array_equal(getattr(r_cpu, k), getattr(r_a, k)):
-            raise AssertionError(f"CUDA and CPU {k} tables differ")
-    d = np.abs(r_cpu.odom_poses - r_a.odom_poses)
-    pos = d[:, :2].max(axis=1)
-    if not (d[:, 2].max() <= 1e-3 and pos.max() <= 1e-2):
-        raise AssertionError(f"CUDA and CPU poses differ: {pos.max():.4f} m, "
-                             f"{d[:, 2].max():.2e} rad")
-    print(f"CPU run of {N_SHORT} frames ({time.perf_counter() - t0:.1f} s): tables "
-          f"identical; poses within {pos.max():.2e} m / {d[:, 2].max():.2e} rad "
-          f"of the CUDA run", flush=True)
-
-    # ---- 6. profile --------------------------------------------------------
-    profile_frames(cfg, frames, 3, dev)
+    # ---- 4./5./6. both paths ---------------------------------------------------
+    launches = {}
+    for label, c, first in (("on", cfg_on, r_on), ("off", cfg, None)):
+        launches[label] = run_path(label, c, frames, short, first, gt, dev,
+                                   scans, az, ranges, stamps)
 
     kernels = [
         dict(name="row_windows", route="cuda",
              source="randt_slam_torch/csrc/window_slice.cu",
              replaces="randt_slam_tpu/ops/window_slice.py:49",
-             launches=launches["row_windows"], **k1),
+             launches=launches["off"]["row_windows"], **k1),
         dict(name="segment_topk_moments", route="cuda",
              source="randt_slam_torch/csrc/segment_moments.cu",
              replaces="randt_slam_tpu/ops/segment_moments.py:154",
-             launches=launches["segment_topk_moments"], **k2),
+             launches=launches["off"]["segment_topk_moments"], **k2),
+        dict(name="ndt_linearize", route="cuda",
+             source="randt_slam_torch/csrc/ndt_linearize.cu",
+             replaces="randt_slam_tpu/ops/ndt_linearize.py:251",
+             launches=launches["on"]["ndt_linearize"], **k3a),
+        dict(name="ndt_robust_cost", route="cuda",
+             source="randt_slam_torch/csrc/ndt_linearize.cu",
+             replaces="randt_slam_tpu/ops/ndt_linearize.py:282",
+             launches=launches["on"]["ndt_robust_cost"], **k3b),
+        dict(name="chol_solve", route="cuda",
+             source="randt_slam_torch/csrc/small_chol.cu",
+             replaces="randt_slam_tpu/ops/small_chol.py:77",
+             launches=launches["on"]["chol_solve"], **k4),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -165,22 +165,17 @@ class MatcherConfig:
     # accepted LM step improving the cost by less than this relative amount
     # terminates the inner loop.
     lm_function_tolerance: float = 1e-6
-    # TPU-native (no reference counterpart): route the window estimator's
-    # LM loop through the Pallas-fused linearize/cost kernels
-    # (``ops/ndt_linearize.py``).  MEASURED round 5 (scripts/
-    # ab_pallas_linearize.py, 40-frame lax.scan on the v5e): numerically
-    # exact vs the jacfwd path (same ATE, pose delta < 5e-4 m) but ~3%
-    # SLOWER (2.13 vs 2.06 ms/frame) — at W=3 x 2048-pair shapes the Mosaic
-    # launch overhead inside the LM while_loop eats the fusion win, and the
-    # round-4 ftol/ptol fixes already cut the iteration count the fusion
-    # would have amortized.  Kept for larger windows/capacities where the
-    # arithmetic grows but launches don't; OFF by default.
+    # No reference counterpart: compute the window estimator's NDT blocks,
+    # trial cost and GNC mu initialisation with the fused linearize and cost
+    # kernels K3a/K3b (``ops/ndt_linearize.py``; the 3-D residual of
+    # ``use_intensity_as_dimension`` only) instead of reverse-mode autograd.
+    # On a CUDA tensor the CUDA kernels run, on a CPU tensor their plain
+    # versions.  The name is the JAX package's, so configurations carry
+    # across.  OFF by default.
     use_pallas_linearize: bool = False
-    # Independently: solve the damped 36x36 normal equations with the
-    # single-kernel in-VMEM Cholesky (``ops/small_chol.py``) instead of
-    # XLA's LU pipeline.  MEASURED round 5: exact but ~8% slower per frame —
-    # the kernel's 3P sequential cross-lane reductions underperform the LU
-    # custom call at P=36.  OFF by default.
+    # Independently: solve the damped (W+1)*9-square normal equations with
+    # the Cholesky kernel K4 (``ops/small_chol.py``) instead of
+    # ``torch.linalg.solve_ex``; the same CUDA/CPU routing.  OFF by default.
     use_pallas_chol: bool = False
 
 

@@ -1,0 +1,336 @@
+// Fused NDT linearization (kernel K3a) and robust cost (kernel K3b) of the
+// window smoother's LM loop.
+//
+// Replaces: randt_slam_tpu/ops/ndt_linearize.py `linearize` (Pallas kernel
+// `_linearize_kernel`) and `robust_cost` (Pallas kernel `_cost_kernel`),
+// both over the shared math `_pair_terms`, `_barron_weight`, `_barron_rho`.
+//
+// Per window slot w, over its N pairs (moving cell, fixed map, neighbour):
+//
+//   r2 = d^T S^-1 d,  S = R Sigma_m R^T + Sigma_f,  d = R mu_m + t - mu_f
+//   r  = sqrt(max(r2, eps)),  J = dr/d(tx, ty, theta) (zero where r2 <= eps)
+//   K3a: H = sum w J J^T (3x3), g = sum w r J (3), rho = sum rho(r^2) v
+//        with w = ndt_scale * rho'(r^2) * v (Barron IRLS weight, GNC mu)
+//   K3b: rho = sum rho(r^2) v, r2max = max over valid pairs of r^2
+//
+// Inputs are the channels-first packs of ops/ndt_linearize.pack_pairs:
+// m_mean (W,3,N), m_cov (W,6,N), a_mean (W,3,N), a_cov (W,6,N), valid
+// (W,1,N), covariances as their 6 unique components [00 01 02 11 12 22];
+// pose4 (W,4) = [tx, ty, cos theta, sin theta] computed outside.  mu and
+// ndt_scale are read from device memory (they are device tensors inside the
+// LM loop; passing them by value would make the host wait on the device).
+//
+// What bounds it on an H100: reading the valid weight of every pair and
+// the other 18 floats of each valid pair once (an invalid pair adds
+// nothing; at most W * N * 76 B = 0.47 MB at the Oxford shape W = 3,
+// N = 2048, ~0.14 us at 3.35 TB/s); about 200 float operations per valid
+// pair are ~0.02 us at 67 TFLOP/s.  At this size one launch costs more than
+// either: the kernel
+// exists to replace the ~1,000 small launches of an autograd linearization.
+// The TPU kernel unrolled the W slots over full-width vector ops in one
+// program; here each slot is one block and a thread takes the pairs
+// n = t, t + 256, ..., which keeps the loads of each channel coalesced.
+//
+// Determinism: every thread sums its pairs in a fixed order; a fixed-order
+// shared-memory tree then reduces the per-thread sums.  No float atomics, so
+// two launches give bitwise-identical output.  Built without fast math:
+// sqrtf, powf, log1pf and division are the IEEE-accurate versions.
+
+#include <cuda_runtime.h>
+
+#include <cfloat>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTerms = 10;  // H00 H01 H02 H11 H12 H22 g0 g1 g2 rho
+
+// Barron loss with the GNC control parameter folded into the scale
+// (registration/barron.py): b = mu a^2, c = 1/b; branch 0 for alpha >= 2,
+// 1 for |alpha| <= 0.05 (Cauchy), 2 otherwise.  factor = |alpha - 2|,
+// exponent = alpha / 2, exponent_m1 = alpha / 2 - 1 come from the host.
+struct Barron {
+  int branch;
+  float alpha, factor, exponent, exponent_m1;
+  float b, c, pre, times_s;
+
+  __device__ Barron(float mu, float scale, float alpha_, int branch_,
+                    float factor_, float exponent_, float exponent_m1_)
+      : branch(branch_), alpha(alpha_), factor(factor_), exponent(exponent_),
+        exponent_m1(exponent_m1_) {
+    b = mu * scale * scale;
+    c = 1.0f / b;
+    pre = b * factor / alpha;
+    times_s = 2.0f * c / factor;
+  }
+
+  __device__ float weight(float s) const {
+    if (branch == 0) return 1.0f;
+    if (branch == 1) {
+      const float w = 1.0f / (1.0f + s * c);
+      return w < FLT_MIN ? FLT_MIN : w;
+    }
+    return pre * exponent * powf(s * times_s + 1.0f, exponent_m1) * times_s;
+  }
+
+  __device__ float rho(float s) const {
+    if (branch == 0) return s;
+    if (branch == 1) return b * log1pf(s * c);
+    return pre * (powf(s * times_s + 1.0f, exponent) - 1.0f);
+  }
+};
+
+struct Pair {
+  float r2, q0, q1, q2, dth0, dth1;
+  float dS00, dS01, dS02, dS11, dS12;
+};
+
+// The pair math of `_pair_terms`, formula for formula.  `x + n` points at
+// channel 0 of pair n; channel k lies N floats further on.
+__device__ __forceinline__ Pair pair_terms(float c, float s, float tx, float ty,
+                                           const float* __restrict__ mm,
+                                           const float* __restrict__ mc,
+                                           const float* __restrict__ am,
+                                           const float* __restrict__ ac,
+                                           int N, int n) {
+  const float mx = mm[n], my = mm[N + n], mi = mm[2 * N + n];
+  const float a = mc[n], b = mc[N + n], e = mc[2 * N + n];
+  const float cc = mc[3 * N + n], f = mc[4 * N + n], g = mc[5 * N + n];
+  const float fx = am[n], fy = am[N + n], fi = am[2 * N + n];
+  const float f00 = ac[n], f01 = ac[N + n], f02 = ac[2 * N + n];
+  const float f11 = ac[3 * N + n], f12 = ac[4 * N + n], f22 = ac[5 * N + n];
+
+  const float u = c * mx - s * my;
+  const float v = s * mx + c * my;
+  const float d0 = u + tx - fx;
+  const float d1 = v + ty - fy;
+  const float d2 = mi - fi;
+
+  // S = R Sigma_m R^T + Sigma_f
+  const float r00 = c * (c * a - s * b) - s * (c * b - s * cc);
+  const float r01 = c * (s * a + c * b) - s * (s * b + c * cc);
+  const float r11 = s * (s * a + c * b) + c * (s * b + c * cc);
+  const float r02 = c * e - s * f;
+  const float r12 = s * e + c * f;
+  const float s00 = r00 + f00;
+  const float s01 = r01 + f01;
+  const float s02 = r02 + f02;
+  const float s11 = r11 + f11;
+  const float s12 = r12 + f12;
+  const float s22 = g + f22;
+
+  // q = S^-1 d via the adjugate; |det| < 1e-30 (a small negative det too)
+  // becomes +1e-30
+  const float A = s11 * s22 - s12 * s12;
+  const float B = s02 * s12 - s01 * s22;
+  const float C = s01 * s12 - s11 * s02;
+  float det = s00 * A + s01 * B + s02 * C;
+  det = fabsf(det) < 1e-30f ? 1e-30f : det;
+  const float D = s00 * s22 - s02 * s02;
+  const float E = s01 * s02 - s00 * s12;
+  const float F = s00 * s11 - s01 * s01;
+  Pair p;
+  p.q0 = (A * d0 + B * d1 + C * d2) / det;
+  p.q1 = (B * d0 + D * d1 + E * d2) / det;
+  p.q2 = (C * d0 + E * d1 + F * d2) / det;
+  p.r2 = d0 * p.q0 + d1 * p.q1 + d2 * p.q2;
+  p.dth0 = -v;
+  p.dth1 = u;
+
+  // dS/dtheta = P + P^T, P = (R' Sigma_m) R^T
+  const float n00 = -s * a - c * b;
+  const float n01 = -s * b - c * cc;
+  const float n02 = -s * e - c * f;
+  const float n10 = c * a - s * b;
+  const float n11 = c * b - s * cc;
+  const float n12 = c * e - s * f;
+  const float p00 = n00 * c - n01 * s;
+  const float p01 = n00 * s + n01 * c;
+  const float p10 = n10 * c - n11 * s;
+  const float p11 = n10 * s + n11 * c;
+  p.dS00 = 2.0f * p00;
+  p.dS01 = p01 + p10;
+  p.dS02 = n02;
+  p.dS11 = 2.0f * p11;
+  p.dS12 = n12;
+  return p;
+}
+
+// max(r2, eps) as jnp.maximum / torch.clamp: a NaN stays NaN
+__device__ __forceinline__ float clamp_eps(float r2, float eps) {
+  return r2 < eps ? eps : r2;
+}
+
+// max(a, b) as jnp.max / torch.amax: a NaN in either stays NaN (fmaxf
+// would drop it)
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// Fixed-order tree over the block: red[k][0] ends up holding the sum.
+template <int K>
+__device__ __forceinline__ void tree_sum(float (*red)[kThreads], int t) {
+  __syncthreads();
+  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
+    if (t < stride) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) red[k][t] += red[k][t + stride];
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+linearize_kernel(const float* __restrict__ pose4, const float* __restrict__ mu_p,
+                 const float* __restrict__ ndt_scale_p,
+                 const float* __restrict__ mm, const float* __restrict__ mc,
+                 const float* __restrict__ am, const float* __restrict__ ac,
+                 const float* __restrict__ valid, float* __restrict__ H,
+                 float* __restrict__ g, float* __restrict__ rho_out, int N,
+                 float scale, float alpha, float eps, int branch, float factor,
+                 float exponent, float exponent_m1) {
+  __shared__ float red[kTerms][kThreads];
+  const int w = blockIdx.x;
+  const int t = threadIdx.x;
+  const float tx = pose4[4 * w], ty = pose4[4 * w + 1];
+  const float c = pose4[4 * w + 2], s = pose4[4 * w + 3];
+  const float ndt_scale = *ndt_scale_p;
+  const Barron loss(*mu_p, scale, alpha, branch, factor, exponent, exponent_m1);
+  const size_t o3 = static_cast<size_t>(w) * 3 * N;
+  const size_t o6 = static_cast<size_t>(w) * 6 * N;
+  const float* vw = valid + static_cast<size_t>(w) * N;
+
+  float acc[kTerms];
+#pragma unroll
+  for (int k = 0; k < kTerms; ++k) acc[k] = 0.0f;
+
+  for (int n = t; n < N; n += kThreads) {
+    const Pair p = pair_terms(c, s, tx, ty, mm + o3, mc + o6, am + o3, ac + o6, N, n);
+    const float w_valid = vw[n];
+    const float r = sqrtf(clamp_eps(p.r2, eps));
+    const float qdSq = p.q0 * (p.dS00 * p.q0 + p.dS01 * p.q1 + p.dS02 * p.q2)
+                       + p.q1 * (p.dS01 * p.q0 + p.dS11 * p.q1 + p.dS12 * p.q2)
+                       + p.q2 * (p.dS02 * p.q0 + p.dS12 * p.q1);
+    const float inv2r = 0.5f / r;
+    // the derivative of sqrt(max(r2, eps)): zero where the clamp holds
+    const float live = p.r2 > eps ? 1.0f : 0.0f;
+    const float J0 = 2.0f * p.q0 * inv2r * live;
+    const float J1 = 2.0f * p.q1 * inv2r * live;
+    const float J2 = (2.0f * (p.q0 * p.dth0 + p.q1 * p.dth1) - qdSq) * inv2r * live;
+    // rho' and rho at r * r, not at r2 (they differ where the clamp holds)
+    const float sq = r * r;
+    const float wgt = ndt_scale * loss.weight(sq) * w_valid;
+    const float wr = wgt * r;
+    acc[0] += wgt * J0 * J0;
+    acc[1] += wgt * J0 * J1;
+    acc[2] += wgt * J0 * J2;
+    acc[3] += wgt * J1 * J1;
+    acc[4] += wgt * J1 * J2;
+    acc[5] += wgt * J2 * J2;
+    acc[6] += wr * J0;
+    acc[7] += wr * J1;
+    acc[8] += wr * J2;
+    acc[9] += loss.rho(sq) * w_valid;
+  }
+
+#pragma unroll
+  for (int k = 0; k < kTerms; ++k) red[k][t] = acc[k];
+  tree_sum<kTerms>(red, t);
+  if (t == 0) {
+    float* Hw = H + 9 * w;
+    Hw[0] = red[0][0]; Hw[1] = red[1][0]; Hw[2] = red[2][0];
+    Hw[3] = red[1][0]; Hw[4] = red[3][0]; Hw[5] = red[4][0];
+    Hw[6] = red[2][0]; Hw[7] = red[4][0]; Hw[8] = red[5][0];
+    g[3 * w] = red[6][0];
+    g[3 * w + 1] = red[7][0];
+    g[3 * w + 2] = red[8][0];
+    rho_out[w] = red[9][0];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+robust_cost_kernel(const float* __restrict__ pose4, const float* __restrict__ mu_p,
+                   const float* __restrict__ mm, const float* __restrict__ mc,
+                   const float* __restrict__ am, const float* __restrict__ ac,
+                   const float* __restrict__ valid, float* __restrict__ rho_out,
+                   float* __restrict__ r2max_out, int N, float scale, float alpha,
+                   float eps, int branch, float factor, float exponent,
+                   float exponent_m1) {
+  __shared__ float red[1][kThreads];
+  __shared__ float top[kThreads];
+  const int w = blockIdx.x;
+  const int t = threadIdx.x;
+  const float tx = pose4[4 * w], ty = pose4[4 * w + 1];
+  const float c = pose4[4 * w + 2], s = pose4[4 * w + 3];
+  const Barron loss(*mu_p, scale, alpha, branch, factor, exponent, exponent_m1);
+  const size_t o3 = static_cast<size_t>(w) * 3 * N;
+  const size_t o6 = static_cast<size_t>(w) * 6 * N;
+  const float* vw = valid + static_cast<size_t>(w) * N;
+
+  float rho = 0.0f;
+  float r2max = 0.0f;
+  for (int n = t; n < N; n += kThreads) {
+    const float r2 =
+        pair_terms(c, s, tx, ty, mm + o3, mc + o6, am + o3, ac + o6, N, n).r2;
+    const float w_valid = vw[n];
+    const float r = sqrtf(clamp_eps(r2, eps));
+    const float sq = r * r;
+    rho += loss.rho(sq) * w_valid;
+    r2max = nan_max(r2max, w_valid > 0.0f ? sq : 0.0f);
+  }
+
+  red[0][t] = rho;
+  top[t] = r2max;
+  __syncthreads();
+  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
+    if (t < stride) {
+      red[0][t] += red[0][t + stride];
+      top[t] = nan_max(top[t], top[t + stride]);
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    rho_out[w] = red[0][0];
+    r2max_out[w] = top[0];
+  }
+}
+
+}  // namespace
+
+// K3a.  pose4 (W,4), mu (1), ndt_scale (1), packs (W,3|6|3|6|1,N) float32,
+// all contiguous on the device -> H (W,3,3), g (W,3), rho (W).  Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
+extern "C" int ndt_linearize_f32(const float* pose4, const float* mu,
+                                 const float* ndt_scale, const float* m_mean,
+                                 const float* m_cov, const float* a_mean,
+                                 const float* a_cov, const float* valid,
+                                 float* H, float* g, float* rho, int W, int N,
+                                 float scale, float alpha, float eps,
+                                 int branch, float factor, float exponent,
+                                 float exponent_m1, void* stream) {
+  if (W < 0 || N < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (W > 0) {
+    linearize_kernel<<<W, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        pose4, mu, ndt_scale, m_mean, m_cov, a_mean, a_cov, valid, H, g, rho, N,
+        scale, alpha, eps, branch, factor, exponent, exponent_m1);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3b.  The same inputs without ndt_scale -> rho (W), r2max (W).
+extern "C" int ndt_robust_cost_f32(const float* pose4, const float* mu,
+                                   const float* m_mean, const float* m_cov,
+                                   const float* a_mean, const float* a_cov,
+                                   const float* valid, float* rho, float* r2max,
+                                   int W, int N, float scale, float alpha,
+                                   float eps, int branch, float factor,
+                                   float exponent, float exponent_m1,
+                                   void* stream) {
+  if (W < 0 || N < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (W > 0) {
+    robust_cost_kernel<<<W, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        pose4, mu, m_mean, m_cov, a_mean, a_cov, valid, rho, r2max, N, scale,
+        alpha, eps, branch, factor, exponent, exponent_m1);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -13,8 +13,16 @@ current frame.
 
 What depends only on the cadence counters (which states exist, which fixed
 maps are in use) is passed as host values, so that building the masks never
-waits on the device.  ``estimate_loop`` and ``global_grid_search`` (loop
-closure) are not ported yet.
+waits on the device.
+
+``MatcherConfig.use_pallas_linearize`` (3-D residual only) and
+``use_pallas_chol`` route the LM loop through the fused kernels K3a/K3b
+(``ops/ndt_linearize``) and K4 (``ops/small_chol``): the CUDA kernels on a
+CUDA tensor, their plain versions on a CPU tensor.  Off, the NDT blocks come
+from reverse-mode autograd and the solve from ``torch.linalg.solve_ex``.
+
+``estimate_loop`` and ``global_grid_search`` (loop closure) are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ from .. import runtime
 from ..config import SlamConfig
 from ..geometry import normalize_angle, rotmat
 from ..ndt import grid as G
+from ..ops import ndt_linearize as NL
+from ..ops import small_chol
 from . import barron
 from . import residuals as R
 from . import solver
@@ -77,6 +87,34 @@ def predict_next_state(state, raw_dt):
     return R.predict_state(torch.where(acc, 0.0, state), raw_dt)
 
 
+@torch.profiler.record_function("randt.ndt_autograd")
+def ndt_blocks_autograd(pose_w, m_mean, m_cov, f_mean, f_cov, pair_valid,
+                        ndt_scale, scale: float, alpha: float, mu,
+                        use_intensity: bool = True):
+    """Per-slot IRLS normal-equation blocks of the NDT residuals, H (W, 3, 3)
+    and g (W, 3), over pairs (W, F, C, K) at the slot poses (W, 3).
+
+    Each NDT residual depends only on the 3 pose params of its window slot,
+    so its Jacobian row is 3 numbers.  The exact derivatives come from
+    reverse-mode autograd on per-residual copies of the parameters (one
+    backward pass gives every row: each residual reads only its own copy).
+    The JAX package takes the same derivatives in forward mode
+    (``jax.jacfwd``); under ``torch.func.jacfwd`` every elementwise op runs
+    through Python decompositions, which would set the frame time."""
+    with torch.enable_grad():
+        pr = pose_w.detach()[:, None, None, None, :].expand(
+            *f_mean.shape[:-1], 3).clone().requires_grad_(True)
+        r = R.ndt_residual(pr, m_mean, m_cov, f_mean, f_cov,
+                           use_intensity=use_intensity)
+        (J,) = torch.autograd.grad(r.sum(), pr)
+    r = r.detach()
+    w_ndt = ndt_scale * barron.weight(r * r, scale, alpha, mu)
+    w_ndt = torch.where(pair_valid, w_ndt, 0.0)
+    Hj = torch.einsum("wfck,wfcki,wfckj->wij", w_ndt, J, J)
+    gj = torch.einsum("wfck,wfcki->wi", w_ndt * r, J)
+    return Hj, gj
+
+
 class WindowEstimate(NamedTuple):
     states: torch.Tensor      # (W+1, 9) updated window states
     rejected: torch.Tensor    # bool -- pose-jump rejection fired
@@ -117,8 +155,6 @@ def estimate_window(
 ):
     """One frame of the sliding-window smoother (``estimateTransformCeres``)."""
     mcfg = cfg.matcher
-    if mcfg.use_pallas_linearize or mcfg.use_pallas_chol:
-        raise NotImplementedError("next slice")
     W = mcfg.smoothing_steps
     K = mcfg.n_results_nn_lookup
     geom = G.GridGeom.from_config(cfg.ndt_map)
@@ -198,14 +234,8 @@ def estimate_window(
     ndt_scale = mcfg.ndt_weight / torch.clamp(n_cells * K, min=1.0)
 
     # ---- structured linearizer ---------------------------------------------
-    # Each NDT residual depends only on the 3 pose params of its window slot,
-    # so its Jacobian row is 3 numbers, and the per-slot 3x3 JᵀWJ blocks are
-    # added into the (P, P) normal equations.  The exact derivatives come
-    # from reverse-mode autograd on per-residual copies of the parameters
-    # (one backward pass gives every row: each residual reads only its own
-    # copy).  The JAX package takes the same derivatives in forward mode
-    # (``jax.jacfwd``); under ``torch.func.jacfwd`` every elementwise op
-    # runs through Python decompositions, which would set the frame time.
+    # The per-slot 3x3 JᵀWJ blocks of the NDT residuals are added into the
+    # (P, P) normal equations of the aux (motion/IMU) residuals.
     active_f = active_mask.to(dtype)
     scale_ = mcfg.loss_function_scale
     alpha_ = mcfg.loss_function_convexity
@@ -224,16 +254,6 @@ def estimate_window(
     blk_c = runtime.const(np.broadcast_to(blk[:, None, :], (W, 3, 3)), torch.long, dev)
     blk_g = runtime.const(blk, torch.long, dev)
     af_blk = active_f[blk_g]  # (W, 3)
-
-    def slot_jacobian(pose_w):
-        """(r (W,F,C,K), dr/dpose (W,F,C,K,3)) at the slot poses (W, 3)."""
-        with torch.enable_grad():
-            pr = pose_w.detach()[:, None, None, None, :].expand(
-                W, Fm, C, K, 3).clone().requires_grad_(True)
-            r = R.ndt_residual(pr, m_mean_b, m_cov_b, assoc.mean, assoc.cov,
-                               use_intensity=use_int)
-            (J,) = torch.autograd.grad(r.sum(), pr)
-        return r.detach(), J
 
     def aux_jacobian(p):
         """(r_aux (Na,), J_aux (Na, P)): copy m of each transition's two
@@ -254,14 +274,8 @@ def estimate_window(
         J[aux_rows, aux_cols + 1] = g1
         return ra, J.reshape(W * NA, P)
 
-    def linearize_fn(p_flat, mu):
-        p = p_flat.reshape(W + 1, 9)
-        r_ndt, Jn = slot_jacobian(p[1:, :3])  # (W,F,C,K), (W,F,C,K,3)
-        w_ndt = ndt_scale * barron.weight(r_ndt * r_ndt, scale_, alpha_, mu)
-        w_ndt = torch.where(pair_valid, w_ndt, 0.0)
-        Hj = torch.einsum("wfck,wfcki,wfckj->wij", w_ndt, Jn, Jn)
-        gj = torch.einsum("wfck,wfcki->wi", w_ndt * r_ndt, Jn)
-
+    def assemble(p, Hj, gj):
+        """The aux normal equations plus the per-slot NDT blocks."""
         ra, Ja = aux_jacobian(p)
         Jm = Ja * active_f[None, :]
         JW = Jm * wa[:, None]
@@ -271,6 +285,47 @@ def estimate_window(
                         Hj * af_blk[:, :, None] * af_blk[:, None, :], accumulate=True)
         g = g.index_put((blk_g,), gj * af_blk, accumulate=True)
         return H, g
+
+    def linearize_fn(p_flat, mu):
+        p = p_flat.reshape(W + 1, 9)
+        Hj, gj = ndt_blocks_autograd(p[1:, :3], m_mean_b, m_cov_b, assoc.mean,
+                                     assoc.cov, pair_valid, ndt_scale, scale_,
+                                     alpha_, mu, use_intensity=use_int)
+        return assemble(p, Hj, gj)
+
+    # ---- fused kernels (K3a/K3b: 3-D residual only; K4) ---------------------
+    # The pairs are packed once per frame; per LM iteration K3a gives the NDT
+    # blocks, K3b the trial cost, K4 the damped solve.
+    cost_fn = r2max_fn = solve_fn = None
+    if mcfg.use_pallas_chol:
+        solve_fn = small_chol.chol_solve
+    if mcfg.use_pallas_linearize and use_int:
+        packed = NL.pack_pairs(m_mean_b, m_cov_b, assoc.mean, assoc.cov,
+                               pair_valid)
+        mu_one = runtime.const(np.float32(1.0), dtype, dev)
+
+        def aux_cost(p_flat):
+            ra = aux_fn(p_flat)
+            return torch.sum(torch.where(aux_valid, ra * ra, 0.0))
+
+        def linearize_fused(p_flat, mu):
+            p = p_flat.reshape(W + 1, 9)
+            Hj, gj, _ = NL.linearize(p[1:, :3], mu, ndt_scale, packed,
+                                     float(scale_), float(alpha_))
+            return assemble(p, Hj, gj)
+
+        def cost_fn(p_flat, mu):
+            p = p_flat.reshape(W + 1, 9)
+            rho, _ = NL.robust_cost(p[1:, :3], mu, packed, float(scale_),
+                                    float(alpha_))
+            return 0.5 * (ndt_scale * rho + aux_cost(p_flat))
+
+        def r2max_fn(p_flat):
+            p = p_flat.reshape(W + 1, 9)
+            return NL.robust_cost(p[1:, :3], mu_one, packed, float(scale_),
+                                  float(alpha_))[1]
+
+        linearize_fn = linearize_fused
 
     res = solver.gnc_solve(
         residual_fn,
@@ -288,6 +343,9 @@ def estimate_window(
         mcfg.lm_max_iterations,
         mcfg.lm_tolerance,
         lm_ftol=mcfg.lm_function_tolerance,
+        cost_fn=cost_fn,
+        r2max_fn=r2max_fn,
+        solve_fn=solve_fn,
     )
     new_states = res.params.reshape(W + 1, 9)
 

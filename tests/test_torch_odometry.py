@@ -34,6 +34,25 @@ this sequence those were frames 17, 34 and 41 (4.0e-2, 1.5e-2 and 1.2e-2 m):
 stepped from the same carry with the function-tolerance exit taken out, the
 two agree within the one-step tolerance of ``test_torch_frontend_step.py``
 (1e-4 m, 1e-5 rad).
+
+The port runs twice, with its kernel switches off and on
+(``use_pallas_linearize`` and ``use_pallas_chol``: on the CPU the plain
+versions of the fused linearize/cost kernels K3a/K3b and of the Cholesky
+kernel K4); the JAX package runs once, on its CPU path (it honours the
+switches on a TPU only).  With the switches on the port's solves differ
+from the reference's in the last float32 bits everywhere (analytic
+derivatives, a fused cost sum, a Cholesky instead of an LU solve).  Stepped
+from the port's own carry, 42 of the 45 solved frames then agree within
+1e-4 m / 1e-5 rad; 3 land across an ulp-decided LM step (up to 1.3e-3 m,
+1.8e-5 rad), and the free run carries such steps on, as it carries the
+reference's one-ulp azimuth change in ``test_reference_sensitivity``.  The
+switches-on free run therefore misses the switches-off bands above (most
+frames end up over 1e-2 m).  It keeps the tables rule; its guard is the
+one-step rule on every solved frame, without the function-tolerance exit
+(at most four frames beyond 1e-4 m / 1e-5 rad, each within 2e-3 m /
+2e-5 rad); and it is held to looser free-running bands: ATE within
+1e-2 m, headings within 3e-3 rad, positions within 0.1 m (measured:
+7.6e-3 m, 1.4e-3 rad on frames and 2.0e-3 rad on nodes, 8.0e-2 m).
 """
 
 import dataclasses
@@ -55,9 +74,19 @@ from randt_slam_torch.pipeline import frontend as tF, slam as tS
 
 TABLES = ("node_id", "node_frame", "node_submap", "node_is_root",
           "edge_begin", "edge_end")
-POS_TOL, ANG_TOL = 1e-2, 1e-3        # free-running per-frame poses
-MAX_OVER_BAND, OVER_BAND_CAP = 4, 5e-2
+POS_TOL = 1e-2                        # free-running per-frame positions
 STEP_POS_TOL, STEP_ANG_TOL = 1e-4, 1e-5   # one step from one carry
+SWITCHES = {"off": {}, "on": {"matcher.use_pallas_linearize": True,
+                              "matcher.use_pallas_chol": True}}
+# per switch setting: ATE gap, heading band, frames over the position band
+# (None: no count) and their cap, the frames the one-step rule steps (those
+# over the band, or every solved frame), steps beyond it and their caps
+LIMITS = {
+    "off": dict(ate=5e-3, ang=1e-3, max_over=4, cap=5e-2, step_every_frame=False,
+                max_steps=0, step_cap=(STEP_POS_TOL, STEP_ANG_TOL)),
+    "on": dict(ate=1e-2, ang=3e-3, max_over=None, cap=1e-1, step_every_frame=True,
+               max_steps=4, step_cap=(2e-3, 2e-5)),
+}
 
 
 @pytest.fixture(scope="module")
@@ -72,9 +101,11 @@ def jax_result(seq):
     return jS.run_odometry(j_cfg(), frames, use_scan=True)
 
 
-@pytest.fixture(scope="module")
-def torch_run(seq):
-    """The port's result and a copy of the carry entering every frame."""
+@pytest.fixture(scope="module", params=list(SWITCHES))
+def torch_run(seq, request):
+    """The port's configuration, its result and a copy of the carry entering
+    every frame, with the kernel switches off and on."""
+    cfg = t_cfg(**SWITCHES[request.param])
     frames = tS.frames_from_arrays(seq.intensity, seq.azimuths, seq.ranges,
                                    seq.stamps, device="cpu")
     carries = []
@@ -82,12 +113,18 @@ def torch_run(seq):
     def keep(t, carry):
         carries.append(jax.tree.map(np.array, state.carry_to_numpy(carry)))
 
-    return tS.run_odometry(t_cfg(), frames, device="cpu", on_frame=keep), carries
+    return (LIMITS[request.param],
+            tS.run_odometry(cfg, frames, device="cpu", on_frame=keep), carries, cfg)
+
+
+@pytest.fixture(scope="module")
+def limits(torch_run):
+    return torch_run[0]
 
 
 @pytest.fixture(scope="module")
 def torch_result(torch_run):
-    return torch_run[0]
+    return torch_run[1]
 
 
 def _over_band(jax_result, torch_result):
@@ -122,34 +159,39 @@ def test_tables_identical(jax_result, torch_result):
     assert torch_result.saturation == jax_result.saturation
 
 
-def test_ate_against_ground_truth(seq, jax_result, torch_result):
+def test_ate_against_ground_truth(seq, jax_result, torch_result, limits):
     ate_t = formats.ate(torch_result.odom_poses, seq.gt_poses)
     ate_j = formats.ate(jax_result.odom_poses, seq.gt_poses)
     assert ate_t < 2.0 and ate_j < 2.0
-    assert abs(ate_t - ate_j) < 5e-3, (ate_t, ate_j)
+    assert abs(ate_t - ate_j) < limits["ate"], (ate_t, ate_j)
     node_ate = formats.ate(torch_result.node_pose, seq.gt_poses[torch_result.node_frame])
     assert node_ate < 2.0
 
 
-def test_per_frame_poses(jax_result, torch_result):
+def test_per_frame_poses(jax_result, torch_result, limits):
     d = np.abs(torch_result.odom_poses - jax_result.odom_poses)
-    assert d[:, 2].max() <= ANG_TOL, d[:, 2].max()
+    assert d[:, 2].max() <= limits["ang"], d[:, 2].max()
     pos, over = _over_band(jax_result, torch_result)
-    assert len(over) <= MAX_OVER_BAND, {int(t): float(pos[t]) for t in over}
-    assert pos.max() <= OVER_BAND_CAP, pos.max()
+    if limits["max_over"] is not None:
+        assert len(over) <= limits["max_over"], {int(t): float(pos[t]) for t in over}
+    assert pos.max() <= limits["cap"], pos.max()
     # node poses are window states as they leave the window, after up to W
     # more solves of the kind above: the same cap
     dn = np.abs(torch_result.node_pose - jax_result.node_pose)
-    assert dn[:, :2].max() <= OVER_BAND_CAP and dn[:, 2].max() <= ANG_TOL
+    assert dn[:, :2].max() <= limits["cap"] and dn[:, 2].max() <= limits["ang"]
     np.testing.assert_allclose(torch_result.node_desc, jax_result.node_desc, atol=1e-3)
 
 
 def test_over_band_frames_agree_without_exit_test(seq, jax_result, torch_run):
-    """Every frame over the 1e-2 m band, stepped by both packages from the
-    carry the port brought to it, with ``lm_function_tolerance = 0`` (no
-    function-tolerance exit: both run ``lm_max_iterations``)."""
-    torch_result, carries = torch_run
+    """Every frame over the 1e-2 m band (with the switches on, every solved
+    frame), stepped by both packages from the carry the port brought to it,
+    with ``lm_function_tolerance = 0`` (no function-tolerance exit: both run
+    ``lm_max_iterations``)."""
+    limits, torch_result, carries, cfg = torch_run
     _, over = _over_band(jax_result, torch_result)
+    if limits["step_every_frame"]:
+        # frame 0 starts the trajectory; every later frame is solved
+        over = np.arange(1, len(carries))
     if len(over) == 0:
         return
     fj = jS.frames_from_arrays(seq.intensity, seq.azimuths, seq.ranges, seq.stamps)
@@ -157,15 +199,20 @@ def test_over_band_frames_agree_without_exit_test(seq, jax_result, torch_run):
                                device="cpu")
     step = jax.jit(functools.partial(jF.frontend_step, _no_exit_test(j_cfg()),
                                      sensor_to_base=jnp.zeros(3)))
+    beyond = {}
     for t in over:
         oj = np.asarray(step(_jax_carry(carries[t]),
                              jax.tree.map(lambda a: a[t], fj))[1].odom_pose)
-        ot = tF.frontend_step(_no_exit_test(t_cfg()),
+        ot = tF.frontend_step(_no_exit_test(cfg),
                               state.carry_from_numpy(carries[t], "cpu"),
                               tF.Frame(*(x[t] for x in ft)),
                               torch.zeros(3))[1].odom_pose.numpy()
-        assert np.abs(ot[:2] - oj[:2]).max() <= STEP_POS_TOL, (int(t), ot, oj)
-        assert abs(ot[2] - oj[2]) <= STEP_ANG_TOL, (int(t), ot, oj)
+        dp, da = np.abs(ot[:2] - oj[:2]).max(), abs(ot[2] - oj[2])
+        if dp > STEP_POS_TOL or da > STEP_ANG_TOL:
+            beyond[int(t)] = (float(dp), float(da))
+    assert len(beyond) <= limits["max_steps"], beyond
+    cap_p, cap_a = limits["step_cap"]
+    assert all(dp <= cap_p and da <= cap_a for dp, da in beyond.values()), beyond
 
 
 def test_reference_sensitivity(seq, jax_result):

@@ -8,6 +8,23 @@ agree within 1e-4 (m, m/s) and 1e-5 (rad, rad/s): the derivatives are exact
 on both sides (forward mode there, reverse mode here) and differ only in the
 order of float32 operations, which the damped solve does not amplify from
 identical inputs.
+
+The port runs each combination of its kernel switches (``use_pallas_*``):
+on the CPU the fused K3a/K3b linearization and cost and the K4 Cholesky
+solve take their plain versions, whose analytic derivatives and unpivoted
+solve differ from the JAX package's ``jacfwd`` and LU solve (the JAX package
+ignores the switches off a TPU) only in the order of float32 operations:
+the same tolerances hold.
+
+One exception, tied to its cause.  With the K4 switch and the second fixed
+map in use, the LM's 9th iteration of the first GNC round proposes a step
+of ~1.5e-3 m whose trial cost lies one float32 ulp (4.9e-4 of 5587.7) below
+the current cost with K4 and equals it with the LU solve: the port takes
+it, the reference does not (the flat-solve fault of ROADMAP section 3; the
+final costs agree).  So a K4 case over the tolerance must show that K4
+solved exactly: the port with a float64 solve in K4's place lands within
+1e-6 of K4's answer; it must also stay within 5e-3 m / 1e-4 rad of the
+reference.
 """
 
 import numpy as np
@@ -22,11 +39,14 @@ from randt_slam_tpu.ndt import grid as jG
 from randt_slam_tpu.pipeline import frontend as jF, slam as jS
 from randt_slam_tpu.registration import matcher as jM
 from randt_slam_torch.config import synthetic_config as t_cfg
+from randt_slam_torch.ops import small_chol
 from randt_slam_torch.registration import matcher as tM
 from randt_slam_torch.registration import residuals as tR
 
 LIN_TOL = 1e-4
 ANG_TOL = 1e-5
+EXACT_TOL = 1e-6                       # K4 against a float64 solve
+EDGE_LIN_TOL, EDGE_ANG_TOL = 5e-3, 1e-4  # one ulp-decided LM step
 
 
 @pytest.fixture(scope="module")
@@ -59,8 +79,17 @@ def window():
     )
 
 
+SWITCHES = {
+    "off": {},
+    "linearize": {"matcher.use_pallas_linearize": True},
+    "chol": {"matcher.use_pallas_chol": True},
+    "both": {"matcher.use_pallas_linearize": True, "matcher.use_pallas_chol": True},
+}
+
+
+@pytest.mark.parametrize("switches", list(SWITCHES))
 @pytest.mark.parametrize("n_exist,use_prev", [(4, False), (2, False), (4, True)])
-def test_estimate_window_matches_jax(window, n_exist, use_prev):
+def test_estimate_window_matches_jax(window, n_exist, use_prev, switches, monkeypatch):
     d = window
     W = d["W"]
     exist = np.arange(W + 1) >= (W + 1 - n_exist)
@@ -75,21 +104,29 @@ def test_estimate_window_matches_jax(window, n_exist, use_prev):
     t = torch.from_numpy
     ft = tM.FixedMaps(index=tuple(t(i) for i in d["index"]), mean=t(d["mean"]),
                       cov=t(d["cov"]), valid=t(d["valid"]), use=(True, use_prev))
-    et = tM.estimate_window(t_cfg(), t(d["states"]), t(d["stamps"]), exist,
-                            t(d["imu"]), tM.ScanWindow(*(t(x) for x in d["sw"])), ft,
-                            t(d["states"][-2, :3]))
+
+    def port():
+        return tM.estimate_window(t_cfg(**SWITCHES[switches]), t(d["states"]),
+                                  t(d["stamps"]), exist, t(d["imu"]),
+                                  tM.ScanWindow(*(t(x) for x in d["sw"])), ft,
+                                  t(d["states"][-2, :3]))
+
+    et = port()
     assert bool(et.rejected) == bool(ej.rejected)
     assert int(et.n_residuals) == int(ej.n_residuals) > 0
     diff = np.abs(et.states.numpy() - np.asarray(ej.states))
     ang = [tR.TH, tR.OM]
     lin = [c for c in range(9) if c not in ang]
-    assert diff[:, lin].max() <= LIN_TOL, diff
-    assert diff[:, ang].max() <= ANG_TOL, diff
+    within = diff[:, lin].max() <= LIN_TOL and diff[:, ang].max() <= ANG_TOL
+    if not within and SWITCHES[switches].get("matcher.use_pallas_chol"):
+        monkeypatch.setattr(small_chol, "chol_solve", lambda A, b: torch.linalg.solve(
+            A.double(), b.double()).float())
+        exact = port()
+        assert np.abs(exact.states.numpy() - et.states.numpy()).max() <= EXACT_TOL
+        assert diff[:, lin].max() <= EDGE_LIN_TOL, diff
+        assert diff[:, ang].max() <= EDGE_ANG_TOL, diff
+    else:
+        assert diff[:, lin].max() <= LIN_TOL, diff
+        assert diff[:, ang].max() <= ANG_TOL, diff
     np.testing.assert_allclose(float(et.cost), float(ej.cost), rtol=1e-4)
 
-
-def test_pallas_switches_are_refused():
-    cfg = t_cfg(**{"matcher.use_pallas_linearize": True})
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tM.estimate_window(cfg, torch.zeros(4, 9), torch.zeros(4), [True] * 4,
-                           torch.zeros(3), None, None, torch.zeros(3))

@@ -2,40 +2,64 @@
 
     python3 chip_smoke.py
 
-Two paths of offline odometry at the Oxford configuration run: with the
-kernel switches off (``oxford_config()``: the scan kernels K1 and K2, the LM
-loop in autograd and ``solve_ex``) and on (``use_pallas_linearize`` and
-``use_pallas_chol``: also the fused linearize/cost kernels K3a/K3b and the
-Cholesky kernel K4 in the LM loop).
+Three paths of the port run at the Oxford configuration: offline odometry
+with the kernel switches off (``oxford_config()``: the scan kernels K1 and
+K2, the LM loop in autograd and ``solve_ex``) and on
+(``use_pallas_linearize`` and ``use_pallas_chol``: also the fused
+linearize/cost kernels K3a/K3b and the Cholesky kernel K4 in the LM loop),
+and full offline SLAM (``run_slam``: odometry with the switches on,
+ScanContext loop closure with the CS gate, the pose graph).  The full
+segment sum K5 has no pipeline caller; its entry point is
+``ndt/cells.from_points``.
 
 Phases (any failed check raises and the script exits non-zero):
 
 1. the card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and
    power limit;
-2. the CUDA kernels of both paths (``randt_slam_torch/csrc``) build with
+2. every CUDA kernel of the port (``randt_slam_torch/csrc``) builds with
    nvcc, all sources at once;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of one Oxford-geometry frame (400 azimuths x 1157 range bins), on seeded
    random inputs and on a rendered frame (K3a/K3b/K4: the inputs of that
-   frame's LM solve, captured on the switches-on path); its time (CUDA
-   events), the plain version's, a one-call PyTorch yardstick where one
-   exists and the least time the card could take for the same work;
-4. per path, ``run_odometry`` over 160 rendered frames of that geometry:
-   exact launch counts (K1 and K2 once per frame; per ``estimate_window``
-   call K3a and K4 gnc_steps x lm_max_iterations times and K3b
+   frame's LM solve, captured on the switches-on path; K5: the frame's
+   filtered points and cluster ids, and its entry point ``from_points``
+   driven once with the counts at 0); its time (CUDA events), the plain
+   version's, a one-call PyTorch yardstick where one exists and the least
+   time the card could take for the same work;
+4. per odometry path, ``run_odometry`` over rendered frames of that
+   geometry (80 with the switches on, 40 off): exact launch counts (K1 and K2 once per frame; per
+   ``estimate_window`` call K3a and K4 gnc_steps x lm_max_iterations times
+   and K3b
    2 + gnc_steps x (1 + lm_max_iterations) times on the switches-on path,
    none of them on the other), all poses finite, odometry ATE against the
    rendered ground truth within the band below; steady frames/s and
-   ms/frame, timed inside the run, and the host's CPU model, clock and load
-   beside them;
-5. per path, the first 20 frames twice on the card (bitwise-identical poses)
-   and once on the CPU, where the kernels' plain versions run (identical
-   node/edge tables, poses within 1e-2 m and 1e-3 rad on every frame);
-6. per path, a short ``torch.profiler`` window: device busy share, launches
-   per LM iteration, the kernels that take the device time, and host and
-   device time per layer of the port; the switches-on window must hold no
-   LU (``getrf``/``getrs``) kernel and no autograd pass over the NDT
-   residuals (``randt.ndt_autograd``).
+   ms/frame (frames 20 to the end, timed inside the run), and the host's
+   CPU model, clock and load beside them;
+5. per odometry path, the first 20 frames twice on the card
+   (bitwise-identical poses) and once on the CPU, where the kernels' plain
+   versions run (identical node/edge tables, poses within 1e-2 m and 1e-3
+   rad on every frame);
+6. per odometry path, a ``torch.profiler`` window over its first two frames
+   (one solved): device busy share, launches per LM iteration, the kernels that take the device time, and
+   host and device time per layer of the port; the switches-on window must
+   hold no LU (``getrf``/``getrs``) kernel and no autograd pass over the NDT
+   residuals (``randt.ndt_autograd``);
+7. full SLAM: ``run_slam`` over a looping drive of that geometry (240
+   frames, 1.5 laps of 160 m): ScanContext candidates, accepted loop edges
+   (at least one) and odometry-gate rejections; finite poses; the dense
+   pose-graph route with the two-stage DCS schedule; odometry and post-PGO
+   node ATE against the rendered ground truth (post-PGO no worse than 1.05 x
+   odometry); wall seconds per phase and loop stage, beside the host's CPU;
+   exact launch counts of the run (K1 and K2 once per frame and once per
+   candidate frame rebuilt in the loop phase, of which the loop phase
+   launches exactly the latter; K3a/K3b/K4 per window solve as in phase 4;
+   no K5); the loop phase's peak device memory.  Then the loop and
+   pose-graph phases again from the same odometry result, twice more on the
+   card (bitwise equal; the second under ``torch.profiler``) and once on the
+   CPU (identical candidate and edge tables; optimized poses within 1e-3 m /
+   1e-4 rad; the CS gate on the card run's cells and refined poses within
+   1e-4 relative; free-running, the refined edges within one ulp-decided LM
+   step and the CS divergences within the band below).
 
 The second-to-last line of the output is the kernels' JSON record, the last
 line ``{"ok": true, "device": {...}}``.
@@ -43,6 +67,7 @@ line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -54,9 +79,24 @@ import numpy as np
 N_AZ = 400
 BIN_W = 0.0864          # m: Oxford bins after the 2x downsampling of io/oxford
 MAX_RANGE = 100.0
-N_FRAMES = 160
+# odometry main runs per switch setting (the switches-off path, the earlier
+# and slower one, is cut deeper to keep the script inside its time on a slow
+# host; full SLAM drives the switches-on path over 240 frames)
+N_FRAMES = {"on": 80, "off": 40}
 N_SHORT = 20
-ATE_BAND_M = 0.25       # odometry ATE over the 160 frames (~160 m driven)
+# the odometry drive as rendered since PR 1 (its trajectory depends on its
+# length): the runs take its first frames, the kernel checks its middle frame
+N_RENDER = 160
+N_LOOP = 240            # full-SLAM drive: 1.5 laps of a 160 m loop
+LOOP_LAPS = 1.5
+ATE_BAND_M = 0.25       # odometry ATE over the main runs (40-80 m driven)
+# free-running loop closure on the CPU against the card's, from one odometry
+# result: refined edges (m, rad) and CS divergences (relative); twice the
+# largest reading on an H100 over two drives (this script's: 1.72e-3 m,
+# 1.85e-5 rad, 5.54e-4; tests/test_torch_kernels_cuda.py's loop sequence:
+# 6.26e-3 m, 7.93e-5 rad, 8.36e-4), inside the CPU tests' one-step band
+LOOP_EDGE_BAND = (1.3e-2, 1.6e-4)
+LOOP_CS_BAND = 1.7e-3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOPS = 67e12          # H100 SXM, non-tensor float32, published
 CAPTURE_FRAME = 10          # the frame whose LM-solve inputs K3a/K3b/K4 check
@@ -71,14 +111,19 @@ K3B_FLOPS_PER_PAIR = 140
 K3_REL = 1e-4   # K3a/K3b sums against plain, relative to their scale
 
 
-def render_frames(n_frames, seed=0):
+def render_frames(n_frames, seed=0, laps=None):
     """Oxford-geometry frames: a smooth drive through a scatterer world,
     rendered as polar intensity images (as the JAX package's bench.py does
-    without the recorded ground truth)."""
+    without the recorded ground truth); with ``laps``, a circular drive of
+    that many laps, revisiting its first lap."""
     from randt_slam_torch.io import synthetic as S
 
     rng = np.random.default_rng(seed)
-    gt = S.make_trajectory(rng, n_frames, dt=0.25, speed=4.0)
+    if laps is None:
+        gt = S.make_trajectory(rng, n_frames, dt=0.25, speed=4.0)
+    else:
+        gt = S.make_trajectory(rng, n_frames, dt=0.25, speed=4.0, loop=True,
+                               laps=laps)
     landmarks = S.make_world(rng, trajectory=gt, n_walls=120, corridor=50.0,
                              n_clutter=240)
     az = (np.arange(N_AZ) / N_AZ * 2 * np.pi - np.pi).astype(np.float32)
@@ -144,7 +189,12 @@ def frame_inputs(cfg, scan_np, az, ranges, dev):
     filt = pp.filter_scan(scan, pc, torch.zeros(3, device=dev))
     ids, num = pp.cluster_ids(filt.points, filt.mask, pc)
     values = C._moment_channels(filt.points, filt.mask).contiguous()
-    return k1, (values, ids, num, cfg.capacity.max_scan_cells)
+    # K5's entry point as build_scan_cells calls the scan NDT build
+    cell = cfg.ndt_map.cell
+    k5 = (filt.points, filt.mask, ids, num,
+          filt.polar if cell.use_pndt else None,
+          np.asarray(cell.beam_cov) if cell.use_pndt else None)
+    return k1, (values, ids, num, cfg.capacity.max_scan_cells), k5
 
 
 def check_k1(k1_sets, dev):
@@ -227,6 +277,83 @@ def check_k2(k2_sets, dev):
           f"{t['library_ms'] * 1e3:.2f} us, bound {b * 1e3:.3f} us ({by}, "
           f"{nbytes} B, {kept_rows} rows in the kept segments)", flush=True)
     return dict(max_abs_err=err, bound_ms=b, bound_by=by, **t)
+
+
+def check_k5(k5_sets, entry, cfg, dev):
+    """K5 against its plain version on seeded sets and a rendered frame's
+    scan NDT inputs: every element within 1e-5 of the sum of the absolute
+    values of its terms, two launches bitwise equal.  Then its entry point
+    ``cells.from_points`` on that frame, once with the counts at 0: the rows
+    at K2's top-k segments agree with ``from_points_compact`` within the
+    same rule.  Returns the record and the entry run's launch count."""
+    import torch
+
+    from randt_slam_torch.ndt import cells as C
+    from randt_slam_torch.ops import build
+    from randt_slam_torch.ops import segment_moments as K5
+
+    err = 0.0
+    for values, ids, num in k5_sets:
+        out = K5.segment_moments(values, ids, num)
+        again = K5.segment_moments(values, ids, num)
+        plain = K5.segment_moments_plain(values, ids, num)
+        scale = K5.segment_moments_plain(values.abs(), ids, num)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError("K5: two launches are not bitwise identical")
+        if not bool(((out - plain).abs() <= 1e-5 * scale).all()):
+            raise AssertionError("K5: sums differ from plain beyond 1e-5 of their scale")
+        err = max(err, float((out - plain).abs().max()))
+
+    # the entry point, driven once with the counts at 0
+    points, mask, ids, num, polar, beam_cov = entry
+    build.reset_launches()
+    full = C.from_points(points, mask, ids, num, polar=polar, beam_cov=beam_cov)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    if launches["segment_moments"] != 1 or sum(launches.values()) != 1:
+        raise AssertionError(f"from_points launched {launches}, expected one K5")
+    k = cfg.capacity.max_scan_cells
+    compact, topi = C.from_points_compact(points, mask, ids, num, k, polar=polar,
+                                          beam_cov=beam_cov)
+    chans = C._moment_channels(points, mask, polar, beam_cov)
+    scale = C._unpack(K5.segment_moments_plain(chans.abs(), ids, num))
+    for a, b, sc in zip(full, compact, scale):
+        if not bool(((a[topi] - b).abs() <= 1e-5 * sc[topi]).all()):
+            raise AssertionError("K5: from_points rows at K2's top-k differ from "
+                                 "from_points_compact beyond 1e-5 of their scale")
+
+    values, ids, num = k5_sets[-1]
+    P, CH = values.shape
+    perm, offsets = K5.segment_order(ids, num)
+    ok = (ids >= 0) & (ids < num)
+    safe = torch.where(ok, ids, num).long()
+    t = dict(
+        ms=device_ms(lambda: K5.segment_sum_cuda(values, perm, offsets)),
+        plain_ms=device_ms(lambda: K5.segment_moments_plain(values, ids, num)),
+        library_ms=device_ms(lambda: torch.zeros(num + 1, CH, device=dev).index_add_(
+            0, safe, values)),
+    )
+    whole_ms = device_ms(lambda: K5.segment_moments(values, ids, num))
+    # the least the function must move: every id read once, the value rows
+    # of the kept points only (a dropped id's row adds to no sum), the
+    # (S, CH) sums written once; one add per kept value
+    kept = int(ok.sum())
+    nbytes = P * 4 + kept * CH * 4 + num * CH * 4
+    b, by = bound_ms(nbytes, kept * CH)
+    print(f"K5 segment_moments: within 1e-5 of the scale of plain, two launches "
+          f"bitwise equal, on {len(k5_sets)} inputs (the last a rendered frame: "
+          f"P={P}, S={num}, {kept} kept points); from_points launched K5 once and "
+          f"agrees with from_points_compact at K2's top-{k}; kernel "
+          f"{t['ms'] * 1e3:.2f} us, the whole call with its plain sort and "
+          f"search {whole_ms * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
+          f"index_add_ (atomic, not reproducible) {t['library_ms'] * 1e3:.2f} us, "
+          f"bound {b * 1e3:.4f} us ({by}, {nbytes} B: {P} ids, {kept} kept value "
+          f"rows, {num} sums; all {P} value rows would be "
+          f"{(P * (CH + 1) + num * CH) * 4} B; the permutation and run offsets "
+          f"this design materialises, {(P + num + 1) * 4} B more, are not "
+          f"counted)", flush=True)
+    return dict(max_abs_err=err, bound_ms=b, bound_by=by, **t), launches["segment_moments"]
 
 
 def capture_solve_inputs(cfg, frames, dev, frame):
@@ -430,37 +557,86 @@ def check_k4(systems, dev):
     return dict(max_abs_err=float((x - xp).abs().max()), bound_ms=bd, bound_by=by, **t)
 
 
+def trace_rows(events):
+    """Sum a profiler trace's raw events (``kineto_results.events()``):
+    device rows sorted by device time as (us, count, name), device busy us,
+    and the ``randt.*`` layer ranges as name -> (calls, host us, device us).
+    A layer's device time is that of the kernels whose launching operator
+    started inside one of its ranges (on any host thread).  This pass takes
+    a second where the profiler's ``key_averages`` takes minutes over the
+    ~10^5 launches of a window."""
+    kernels, ranges, op_start, launched = {}, {}, {}, []
+    for e in events:
+        name, start, dur = e.name(), e.start_ns(), e.duration_ns()
+        if str(e.device_type()).endswith("CUDA"):
+            if name.startswith("randt."):
+                continue  # the device span of a layer range
+            row = kernels.setdefault(name, [0, 0])
+            row[0] += dur
+            row[1] += 1
+            launched.append((e.linked_correlation_id(), dur))
+        else:
+            if name.startswith("randt."):
+                ranges.setdefault(name, []).append((start, start + dur))
+            # operators and ranges, which kernels link to; the CUDA API
+            # calls (cudaLaunchKernel, ...) number their own correlation
+            if not name.startswith("cu") and e.correlation_id() > 0:
+                op_start[e.correlation_id()] = start
+    rows = sorted(((ns / 1e3, n, name) for name, (ns, n) in kernels.items()),
+                  reverse=True)
+    total = sum(r[0] for r in rows)
+    linked = [(op_start[c], d) for c, d in launched if c in op_start]
+    k_at = np.array([t for t, _ in linked], dtype=np.int64)
+    k_dur = np.array([d for _, d in linked], dtype=np.float64)
+    layers = {}
+    for name, spans in ranges.items():
+        spans = np.array(sorted(spans), dtype=np.int64)
+        i = np.searchsorted(spans[:, 0], k_at, side="right") - 1
+        inside = (i >= 0) & (k_at <= spans[np.maximum(i, 0), 1])
+        layers[name] = (len(spans), float((spans[:, 1] - spans[:, 0]).sum()) / 1e3,
+                        float(k_dur[inside].sum()) / 1e3)
+    return rows, total, layers
+
+
+def profile_window(fn):
+    """Run ``fn()`` under ``torch.profiler``: returns (its result, wall s,
+    and :func:`trace_rows` of the window)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows, total, layers = trace_rows(prof.profiler.kineto_results.events())
+    print(f"profiler: {time.perf_counter() - t_all - wall:.1f} s of wall beyond the "
+          f"{wall:.1f} s window (trace collection and aggregation)", flush=True)
+    return out, wall, rows, total, layers
+
+
+def print_profile(rows, layers, per, unit):
+    for dt, cnt, key in rows[:12]:
+        print(f"  {dt / 1e3:9.3f} ms  {cnt:7d} x  {key[:90]}", flush=True)
+    # the port's layers (``randt.*`` profiler ranges): host time inside each,
+    # and the device time of the kernels it launched
+    for key, (calls, host_us, dev_us) in sorted(layers.items()):
+        print(f"  layer {key:24s} {calls:5d} calls: host "
+              f"{host_us / 1e3 / per:9.2f} ms/{unit}, device "
+              f"{dev_us / 1e3 / per:8.2f} ms/{unit}", flush=True)
+
+
 def profile_frames(label, cfg, frames, n, dev):
     """Device busy share, launches per LM iteration, top kernels and the
     port's layers over the first ``n`` frames (frame 0 is not solved).
     Returns the device kernel names and the layer ranges seen."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from randt_slam_torch.pipeline import slam
 
     sub = type(frames)(*(x[:n] for x in frames))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        slam.run_odometry(cfg, sub, device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device-side rows only (kernels, copies, fills); the host-side operator
-    # rows carry the same device time again
-    rows = []
-    total = 0.0
-    layers = {}
-    for e in prof.key_averages():
-        if e.key.startswith("randt."):
-            if not str(e.device_type).endswith("CUDA"):
-                layers[e.key] = e
-            continue  # the device spans of the layer ranges
-        if not str(e.device_type).endswith("CUDA"):
-            continue
-        rows.append((e.self_device_time_total, e.count, e.key))
-        total += e.self_device_time_total
-    rows.sort(reverse=True)
+    _, wall, rows, total, layers = profile_window(
+        lambda: slam.run_odometry(cfg, sub, device=dev))
     busy = total / 1e6 / wall if wall > 0 else float("nan")
     launches = sum(r[1] for r in rows)
     lm_iters = (n - 1) * cfg.matcher.gnc_steps * cfg.matcher.lm_max_iterations
@@ -468,14 +644,7 @@ def profile_frames(label, cfg, frames, n, dev):
           f"device busy {total / 1e3:.1f} ms ({100 * busy:.1f}% of wall), {launches} "
           f"device launches = {launches / lm_iters:.1f} per LM iteration of the "
           f"{n - 1} solved frames", flush=True)
-    for dt, cnt, key in rows[:12]:
-        print(f"  {dt / 1e3:9.3f} ms  {cnt:7d} x  {key[:90]}", flush=True)
-    # the port's layers (``randt.*`` profiler ranges): host time inside each,
-    # and the device time of the kernels it launched
-    for key, e in layers.items():
-        print(f"  layer {key:22s} {e.count:4d} calls: host "
-              f"{e.cpu_time_total / 1e3 / n:8.2f} ms/frame, device "
-              f"{e.device_time_total / 1e3 / n:7.2f} ms/frame", flush=True)
+    print_profile(rows, layers, n, "frame")
     return [r[2] for r in rows], set(layers)
 
 
@@ -502,15 +671,50 @@ def host_cpu() -> str:
             f"cores; {clock}; load average {load}")
 
 
+@contextlib.contextmanager
+def counting_solves():
+    """Count the ``matcher.estimate_window`` calls (one per solved frame)
+    made inside the block, in the one-element list it yields."""
+    from randt_slam_torch.registration import matcher
+
+    solves, estimate_window = [0], matcher.estimate_window
+
+    def counted(*a, **k):
+        solves[0] += 1
+        return estimate_window(*a, **k)
+
+    matcher.estimate_window = counted
+    try:
+        yield solves
+    finally:
+        matcher.estimate_window = estimate_window
+
+
+def expected_launches(cfg, scans, solves):
+    """The exact launch counts of ``scans`` scan builds (frames and loop
+    candidates) and ``solves`` window solves: K1 and K2 once per scan; per
+    solve, on the switches-on path, K3a and K4 gnc_steps x
+    lm_max_iterations times and K3b 2 + gnc_steps x (1 + lm_max_iterations)
+    times; no K5."""
+    m = cfg.matcher
+    lin = bool(m.use_pallas_linearize and m.use_intensity_as_dimension)
+    iters = m.gnc_steps * m.lm_max_iterations
+    return {"row_windows": scans, "segment_topk_moments": scans,
+            "segment_moments": 0,
+            "ndt_linearize": solves * iters if lin else 0,
+            "ndt_robust_cost": solves * (2 + m.gnc_steps * (1 + m.lm_max_iterations))
+            if lin else 0,
+            "chol_solve": solves * iters if m.use_pallas_chol else 0}
+
+
 def run_path(label, cfg, frames, short, first, gt, dev, scans, az, ranges, stamps):
-    """Phases 4-6 for one switch setting; returns the main run's launch
-    counts."""
+    """Phases 4-6 for one switch setting, the main run over its first
+    ``N_FRAMES[label]`` frames; returns the main run's launch counts."""
     import torch
 
     from randt_slam_torch.io import formats
     from randt_slam_torch.ops import build
     from randt_slam_torch.pipeline import slam
-    from randt_slam_torch.registration import matcher
 
     # ---- 5. (first part) two CUDA runs of the first frames ------------------
     t0 = time.perf_counter()
@@ -527,8 +731,11 @@ def run_path(label, cfg, frames, short, first, gt, dev, scans, az, ranges, stamp
           f"{wall_short:.2f} s warm)", flush=True)
 
     # ---- 4. the main path ----------------------------------------------------
+    n_frames = N_FRAMES[label]
+    frames = type(frames)(*(x[:n_frames] for x in frames))
+    gt = gt[:n_frames]
     print(f"host before the main path: {host_cpu()}", flush=True)
-    marks, cpu_marks, solves = [], [], [0]
+    marks, cpu_marks = [], []
 
     def mark(t, carry):
         # the steady window opens with the device drained at frame N_SHORT;
@@ -538,46 +745,32 @@ def run_path(label, cfg, frames, short, first, gt, dev, scans, az, ranges, stamp
             cpu_marks.extend((time.process_time(), time.thread_time()))
         marks.append(time.perf_counter())
 
-    estimate_window = matcher.estimate_window
-
-    def counted(*a, **k):
-        solves[0] += 1
-        return estimate_window(*a, **k)
-
-    matcher.estimate_window = counted
-    try:
+    with counting_solves() as solves:
         build.reset_launches()
         t0 = time.perf_counter()
         res = slam.run_odometry(cfg, frames, device=dev, on_frame=mark)
         t_end = time.perf_counter()
         launches = dict(build.LAUNCHES)
-    finally:
-        matcher.estimate_window = estimate_window
     proc_s, thread_s = time.process_time() - cpu_marks[0], time.thread_time() - cpu_marks[1]
     wall = t_end - t0
     m = cfg.matcher
     lin = bool(m.use_pallas_linearize and m.use_intensity_as_dimension)
-    iters = m.gnc_steps * m.lm_max_iterations
-    want = {"row_windows": N_FRAMES, "segment_topk_moments": N_FRAMES,
-            "ndt_linearize": solves[0] * iters if lin else 0,
-            "ndt_robust_cost": solves[0] * (2 + m.gnc_steps * (1 + m.lm_max_iterations))
-            if lin else 0,
-            "chol_solve": solves[0] * iters if m.use_pallas_chol else 0}
+    want = expected_launches(cfg, n_frames, solves[0])
     if launches != want:
-        raise AssertionError(f"switches {label}: launches {launches} over {N_FRAMES} "
+        raise AssertionError(f"switches {label}: launches {launches} over {n_frames} "
                              f"frames and {solves[0]} window solves, expected {want}")
     per_solve = {k: v / solves[0] for k, v in launches.items() if k in
                  ("ndt_linearize", "ndt_robust_cost", "chol_solve")}
-    if not np.all(np.isfinite(res.odom_poses)) or res.odom_poses.shape != (N_FRAMES, 3):
+    if not np.all(np.isfinite(res.odom_poses)) or res.odom_poses.shape != (n_frames, 3):
         raise AssertionError("odometry poses are not finite / of the expected shape")
     ate = formats.ate(res.odom_poses, gt)
     t_rpe, r_rpe = formats.rpe(res.odom_poses, gt)
     # frames N_SHORT..N-1, from the drained device at frame N_SHORT to the
     # end of run_odometry (its flush and the one copy of the outputs)
-    steady_ms = (t_end - marks[N_SHORT]) / (N_FRAMES - N_SHORT) * 1e3
+    steady_ms = (t_end - marks[N_SHORT]) / (n_frames - N_SHORT) * 1e3
     issue = np.diff(marks[N_SHORT:]) * 1e3
-    print(f"main path, switches {label}: {N_FRAMES} frames in {wall:.2f} s; steady "
-          f"(frames {N_SHORT}..{N_FRAMES - 1}, timed inside the run) {steady_ms:.1f} "
+    print(f"main path, switches {label}: {n_frames} frames in {wall:.2f} s; steady "
+          f"(frames {N_SHORT}..{n_frames - 1}, timed inside the run) {steady_ms:.1f} "
           f"ms/frame = {1e3 / steady_ms:.3f} frames/s; host issue time per frame "
           f"median {np.median(issue):.1f} ms, min {issue.min():.1f}, max "
           f"{issue.max():.1f}; warm {N_SHORT}-frame run "
@@ -616,7 +809,7 @@ def run_path(label, cfg, frames, short, first, gt, dev, scans, az, ranges, stamp
           f"{d[:, 2].max():.2e} rad of the CUDA run", flush=True)
 
     # ---- 6. profile ------------------------------------------------------------
-    names, layers = profile_frames(label, cfg, frames, 3, dev)
+    names, layers = profile_frames(label, cfg, frames, 2, dev)
     lu = sorted({k for k in names if "getrf" in k.lower() or "getrs" in k.lower()})
     print(f"switches {label}: LU kernels in the window: {lu or 'none'}; NDT autograd "
           f"range {'present' if 'randt.ndt_autograd' in layers else 'absent'}", flush=True)
@@ -629,7 +822,218 @@ def run_path(label, cfg, frames, short, first, gt, dev, scans, az, ranges, stamp
     return launches
 
 
+def loop_and_pgo(cfg, odo, frames, device):
+    """The loop-closure and pose-graph phases of ``run_slam`` from one
+    odometry result, on ``device``: (loops, optimized node poses)."""
+    from randt_slam_torch.graph import schur
+    from randt_slam_torch.loops import detector
+    from randt_slam_torch.pipeline import slam
+
+    loops = detector.detect_loops(cfg, odo, frames, device=device)
+    opt, info = schur.optimize_auto(slam.build_pose_graph(odo, loops, device),
+                                    cfg.global_fuser, node_submap=odo.node_submap,
+                                    node_is_root=odo.node_is_root)
+    return loops, opt.cpu().numpy()
+
+
+def gate_from_identical_inputs(cfg, odo, frames, loops, dev):
+    """The CS gate on the CPU from the card run's inputs: its accepted edges'
+    refined poses and candidate scan cells (rebuilt on the card, as in the
+    run, and moved over).  Returns the largest relative CS difference, and
+    in how many candidate frames the cells rebuilt on the CPU differ from the
+    card's (a point that crosses a cluster boundary by an ulp moves two
+    cells' statistics and can change their rank among the kept cells)."""
+    import torch
+
+    from randt_slam_torch.loops import detector
+
+    cpu = torch.device("cpu")
+    stage = loops.query_stage[loops.query_stage >= 2]
+    cs_card = loops.cs_divergences[stage == 3]
+    frames_of = np.asarray(odo.node_frame)[loops.edge_end]
+    moving = [x.cpu() for x in detector._candidate_features(cfg, frames, frames_of,
+                                                            None, dev)]
+    moving_cpu = detector._candidate_features(cfg, frames, frames_of, None, cpu)
+    moved = ((moving_cpu[0] - moving[0]).abs().amax(-1) > 1e-3) & moving[2]
+    frames_differ = int(moved.any(-1).sum())
+    fields = detector._store_fields(cfg, odo, cpu)
+    sub = np.asarray(odo.node_submap)[loops.edge_begin]
+    f_self = detector._self_terms(*fields, sub)
+    s = torch.from_numpy(sub.astype(np.int64))
+    cs = detector._cs_gate(torch.from_numpy(loops.edge_trans.astype(np.float32)),
+                           fields[0][s], fields[1][s], fields[2][s], *moving,
+                           torch.tensor([f_self[int(x)] for x in sub]))
+    cs_rel = float(np.max(np.abs(cs.numpy() / cs_card - 1)))
+    return dict(cs_rel=cs_rel, frames_differ=frames_differ,
+                n_frames=len(frames_of))
+
+
+def slam_phase(cfg, dev):
+    """Phase 7: full SLAM over a looping drive; returns the run's launch
+    counts."""
+    import torch
+
+    from randt_slam_torch.io import formats
+    from randt_slam_torch.loops import detector
+    from randt_slam_torch.ops import build
+    from randt_slam_torch.pipeline import slam
+
+    t0 = time.perf_counter()
+    scans, az, ranges, stamps, gt = render_frames(N_LOOP, seed=2, laps=LOOP_LAPS)
+    print(f"full SLAM: rendered a looping drive of {N_LOOP} frames ({LOOP_LAPS} "
+          f"laps of {N_LOOP / LOOP_LAPS:.0f} m) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    frames = slam.frames_from_arrays(scans, az, ranges, stamps, device=dev)
+
+    # the loop phase, watched from inside run_slam: its kernel launches and
+    # its peak device memory
+    watch = {}
+    detect = detector.detect_loops
+
+    def watched(*a, **k):
+        torch.cuda.synchronize(dev)
+        before = dict(build.LAUNCHES)
+        torch.cuda.reset_peak_memory_stats(dev)
+        watch["resident"] = torch.cuda.memory_allocated(dev)
+        out = detect(*a, **k)
+        torch.cuda.synchronize(dev)
+        watch["peak"] = torch.cuda.max_memory_allocated(dev)
+        watch["launches"] = {n: build.LAUNCHES[n] - before[n] for n in before}
+        return out
+
+    print(f"host before full SLAM: {host_cpu()}", flush=True)
+    detector.detect_loops = watched
+    try:
+        with counting_solves() as solves:
+            build.reset_launches()
+            t0 = time.perf_counter()
+            res = slam.run_slam(cfg, frames, device=dev)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            launches = dict(build.LAUNCHES)
+    finally:
+        detector.detect_loops = detect
+    odo, loops = res.odometry, res.loops
+    print(f"host after full SLAM: {host_cpu()}", flush=True)
+
+    n_cand = loops.n_sc_candidates
+    if watch["launches"] != expected_launches(cfg, n_cand, 0):
+        raise AssertionError(f"loop phase launched {watch['launches']}, expected one "
+                             f"K1 and one K2 per candidate frame ({n_cand}) and "
+                             f"nothing else")
+    want = expected_launches(cfg, N_LOOP + n_cand, solves[0])
+    if launches != want:
+        raise AssertionError(f"full SLAM launched {launches} over {N_LOOP} frames, "
+                             f"{n_cand} candidate frames and {solves[0]} window "
+                             f"solves, expected {want}")
+    if loops.n_accepted < 1:
+        raise AssertionError(f"no loop edge accepted ({n_cand} candidates, stages "
+                             f"{np.bincount(loops.query_stage, minlength=4).tolist()})")
+    if not (np.all(np.isfinite(res.node_pose_optimized))
+            and np.all(np.isfinite(odo.odom_poses))):
+        raise AssertionError("full SLAM: poses are not finite")
+    t = res.timings
+    if t["pgo_solver"] != "dense" or not t["pgo_two_stage"]:
+        raise AssertionError(f"pose graph took {t['pgo_solver']}, two-stage "
+                             f"{t['pgo_two_stage']}")
+    node_gt = gt[odo.node_frame]
+    ate_odo = formats.ate(odo.node_pose, node_gt)
+    ate_pgo = formats.ate(res.node_pose_optimized, node_gt)
+    ate_frames = formats.ate(odo.odom_poses, gt)
+    stages = np.bincount(loops.query_stage, minlength=4)
+    print(f"full SLAM: {N_LOOP} frames in {wall:.2f} s; {len(odo.node_id)} nodes, "
+          f"{odo.n_submaps} submaps; queries {len(loops.query_node)} (no candidate "
+          f"{stages[0]}, own submap {stages[1]}, gated out {stages[2]}, accepted "
+          f"{stages[3]}); ScanContext candidates {n_cand}, accepted loop edges "
+          f"{loops.n_accepted}, odometry-gate rejections {loops.n_odom_gate_rejected}; "
+          f"CS divergences {np.round(loops.cs_divergences, 3).tolist()}", flush=True)
+    print(f"full SLAM: node ATE odometry {ate_odo:.4f} m, after the pose graph "
+          f"{ate_pgo:.4f} m (limit 1.05 x); per-frame odometry ATE {ate_frames:.4f} m; "
+          f"pose graph: {t['pgo_solver']}, two-stage, {res.pgo_iterations} "
+          f"iterations in the second stage, cost {res.pgo_cost:.4g}", flush=True)
+    if not ate_pgo <= 1.05 * ate_odo:
+        raise AssertionError(f"post-PGO ATE {ate_pgo:.4f} m above 1.05 x odometry "
+                             f"{ate_odo:.4f} m")
+    lt = loops.timings
+    print(f"full SLAM wall seconds: odometry {t['odometry_s']}, loop closure "
+          f"{t['loop_closure_s']} (descriptors {lt['features_s']}, retrieval "
+          f"{lt['retrieval_s']}, candidate features {lt['cand_features_s']}, refine + "
+          f"gate {lt['refine_gate_s']}), pose graph {t['pgo_s']}; loop phase: K1/K2 "
+          f"launched once per candidate frame ({n_cand}), peak device memory "
+          f"{watch['peak'] / 2**30:.3f} GiB ({watch['resident'] / 2**30:.3f} GiB "
+          f"resident before it); run launches {launches}", flush=True)
+
+    # ---- the loop and pose-graph phases again: twice on the card (the second
+    # under the profiler), once on the CPU, from the same odometry result
+    t0 = time.perf_counter()
+    again = [loop_and_pgo(cfg, odo, frames, dev)]
+    card_s = time.perf_counter() - t0
+    profiled, pw, rows, total, layers = profile_window(
+        lambda: loop_and_pgo(cfg, odo, frames, dev))
+    again.append(profiled)
+    for lp, opt in again:
+        same = (np.array_equal(lp.edge_trans, loops.edge_trans)
+                and np.array_equal(lp.cs_divergences, loops.cs_divergences)
+                and np.array_equal(lp.query_match, loops.query_match)
+                and np.array_equal(opt, res.node_pose_optimized))
+        if not same:
+            raise AssertionError("full SLAM: loop + pose-graph runs on the card differ")
+    t0 = time.perf_counter()
+    lc, opt_c = loop_and_pgo(cfg, odo, frames, "cpu")
+    cpu_s = time.perf_counter() - t0
+    for k in ("query_node", "query_match", "query_stage", "edge_begin", "edge_end"):
+        if not np.array_equal(getattr(lc, k), getattr(loops, k)):
+            raise AssertionError(f"full SLAM: CPU and CUDA loop tables differ in {k}")
+    if (lc.n_sc_candidates, lc.n_accepted, lc.n_odom_gate_rejected) != (
+            n_cand, loops.n_accepted, loops.n_odom_gate_rejected):
+        raise AssertionError("full SLAM: CPU and CUDA loop counts differ")
+    cs_rel = float(np.max(np.abs(lc.cs_divergences / loops.cs_divergences - 1)))
+    de = np.abs(lc.edge_trans - loops.edge_trans)
+    dp = np.abs(opt_c - res.node_pose_optimized)
+    t0 = time.perf_counter()
+    gate = gate_from_identical_inputs(cfg, odo, frames, loops, dev)
+    gate_s = time.perf_counter() - t0
+    print(f"full SLAM, loop + pose graph from one odometry result: two more card "
+          f"runs bitwise equal ({card_s:.1f} s, and the profiled one); CPU run "
+          f"({cpu_s:.1f} s; the CPU gate from identical inputs {gate_s:.1f} s more): "
+          f"tables identical, CS within "
+          f"{cs_rel:.2e} relative, edges within {de[:, :2].max():.2e} m / "
+          f"{de[:, 2].max():.2e} rad, optimized poses within {dp[:, :2].max():.2e} m "
+          f"/ {dp[:, 2].max():.2e} rad; the candidate scan cells rebuilt on the two "
+          f"devices differ in {gate['frames_differ']} of {gate['n_frames']} frames "
+          f"(a mean moved by more than 1e-3 m); the CPU gate on the card run's cells "
+          f"and refined poses within {gate['cs_rel']:.2e} of the card run's CS",
+          flush=True)
+    if not (gate["cs_rel"] <= 1e-4 and dp[:, :2].max() <= 1e-3
+            and dp[:, 2].max() <= 1e-4):
+        raise AssertionError("full SLAM: the CS gate from identical inputs differs "
+                             "beyond 1e-4 relative, or the optimized poses beyond "
+                             "1e-3 m / 1e-4 rad, between CPU and CUDA")
+    # free-running from the same odometry, the two devices rebuild some
+    # candidate cells differently (points an ulp apart across a cluster
+    # boundary), and refinement from them lands within one ulp-decided LM
+    # step, as the CPU tests' one-step band allows
+    if not (cs_rel <= LOOP_CS_BAND and de[:, :2].max() <= LOOP_EDGE_BAND[0]
+            and de[:, 2].max() <= LOOP_EDGE_BAND[1]):
+        raise AssertionError(f"full SLAM: CPU and CUDA loop edges differ beyond "
+                             f"{LOOP_CS_BAND} (CS, relative) / {LOOP_EDGE_BAND[0]} m "
+                             f"/ {LOOP_EDGE_BAND[1]} rad")
+
+    # ---- the profile of the second card run ----------------------------------
+    n_launch = sum(r[1] for r in rows)
+    print(f"profile, loop closure + pose graph: wall {pw * 1e3:.1f} ms, device busy "
+          f"{total / 1e3:.1f} ms ({100 * total / 1e6 / pw:.1f}% of wall), {n_launch} "
+          f"device launches for {n_cand} candidates", flush=True)
+    print_profile(rows, layers, 1, "run")
+    missing = {"randt.loop_retrieval", "randt.loop_refine", "randt.cs_gate",
+               "randt.pgo"} - set(layers)
+    if missing:
+        raise AssertionError(f"profile: ranges {sorted(missing)} not seen")
+    return launches
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -667,11 +1071,16 @@ def main() -> int:
 
     # ---- 3. kernels against their plain versions ---------------------------
     cfg = oxford_config()
+    cfg_on = oxford_config(**SWITCHES_ON)
     t0 = time.perf_counter()
-    scans, az, ranges, stamps, gt = render_frames(N_FRAMES)
-    print(f"rendered {N_FRAMES} frames of {scans.shape[1]}x{scans.shape[2]} "
+    scans, az, ranges, stamps, gt = render_frames(N_RENDER)
+    print(f"rendered {N_RENDER} frames of {scans.shape[1]}x{scans.shape[2]} "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
     rng = np.random.default_rng(1)
+    k1_frame, k2_frame, k5_entry = frame_inputs(cfg, scans[N_RENDER // 2], az,
+                                                ranges, dev)
+    setup_s = time.perf_counter() - t_start
+    t_phase = time.perf_counter()
     A, R, win = N_AZ, scans.shape[2] + 64, 65
     k1_sets = [(
         torch.from_numpy(rng.random((A, R), dtype=np.float32) * 255).to(dev),
@@ -683,14 +1092,12 @@ def main() -> int:
     k2_sets = [(torch.from_numpy(vals).to(dev),
                 torch.from_numpy(rng.integers(-1, num + 1, P)).to(dev), num,
                 cfg.capacity.max_scan_cells)]
-    k1_frame, k2_frame = frame_inputs(cfg, scans[N_FRAMES // 2], az, ranges, dev)
     k1_sets.append(k1_frame)
     k2_sets.append(k2_frame)
     k1 = check_k1(k1_sets, dev)
     k2 = check_k2(k2_sets, dev)
 
-    # ---- 3. (cont.) K3a/K3b/K4 on the inputs of one frame's LM solve ---------
-    cfg_on = oxford_config(**SWITCHES_ON)
+    # ---- 3. (cont.) K3a/K3b/K4 on the inputs of one frame's LM solve -----
     frames = slam.frames_from_arrays(scans, az, ranges, stamps, device=dev)
     short = type(frames)(*(x[:N_SHORT] for x in frames))
     t0 = time.perf_counter()
@@ -707,8 +1114,10 @@ def main() -> int:
     cov = cov @ np.swapaxes(cov, -1, -2) + 0.05 * np.eye(3)
     rand = [torch.tensor(x, dtype=torch.float32, device=dev) for x in
             (m_mean, cov[0], m_mean + rng3.normal(0, 1.0, (W, N, 3)), cov[1])]
-    rand_packed = NL.pack_pairs(*rand, torch.from_numpy(rng3.random((W, N)) < 0.7).to(dev))
-    rand_pose = torch.tensor(rng3.normal(0, 0.3, (W, 3)), dtype=torch.float32, device=dev)
+    rand_packed = NL.pack_pairs(*rand, torch.from_numpy(
+        rng3.random((W, N)) < 0.7).to(dev))
+    rand_pose = torch.tensor(rng3.normal(0, 0.3, (W, 3)), dtype=torch.float32,
+                             device=dev)
     k3_sets = [(NL.pose_inputs(rand_pose), torch.tensor(2.0, device=dev),
                 torch.tensor(0.4, device=dev), rand_packed)]
     k3_sets += [(NL.pose_inputs(poses), mu, ns, packed)
@@ -716,37 +1125,57 @@ def main() -> int:
     k3a, k3b = check_k3(k3_sets, cfg_on, dev)
     k4 = check_k4(chol, dev)
 
-    # ---- 4./5./6. both paths ---------------------------------------------------
+    # ---- 4./5./6. both odometry paths ------------------------------------
     launches = {}
     for label, c, first in (("on", cfg_on, r_on), ("off", cfg, None)):
         launches[label] = run_path(label, c, frames, short, first, gt, dev,
                                    scans, az, ranges, stamps)
+    odometry_s = time.perf_counter() - t_phase
 
-    kernels = [
-        dict(name="row_windows", route="cuda",
-             source="randt_slam_torch/csrc/window_slice.cu",
-             replaces="randt_slam_tpu/ops/window_slice.py:49",
-             launches=launches["off"]["row_windows"], **k1),
-        dict(name="segment_topk_moments", route="cuda",
-             source="randt_slam_torch/csrc/segment_moments.cu",
-             replaces="randt_slam_tpu/ops/segment_moments.py:154",
-             launches=launches["off"]["segment_topk_moments"], **k2),
-        dict(name="ndt_linearize", route="cuda",
-             source="randt_slam_torch/csrc/ndt_linearize.cu",
-             replaces="randt_slam_tpu/ops/ndt_linearize.py:251",
-             launches=launches["on"]["ndt_linearize"], **k3a),
-        dict(name="ndt_robust_cost", route="cuda",
-             source="randt_slam_torch/csrc/ndt_linearize.cu",
-             replaces="randt_slam_tpu/ops/ndt_linearize.py:282",
-             launches=launches["on"]["ndt_robust_cost"], **k3b),
-        dict(name="chol_solve", route="cuda",
-             source="randt_slam_torch/csrc/small_chol.cu",
-             replaces="randt_slam_tpu/ops/small_chol.py:77",
-             launches=launches["on"]["chol_solve"], **k4),
+    # ---- 3. (cont.) K5 and its entry point -----------------------------------
+    t_phase = time.perf_counter()
+    k5_sets = []
+    for P, S in ((5000, 700), (26000, 3249)):
+        r5 = np.random.default_rng(P)
+        k5_sets.append((torch.from_numpy(r5.normal(0, 30, (P, 13)).astype(
+            np.float32)).to(dev), torch.from_numpy(r5.integers(
+                -1, S + 2, P).astype(np.int32)).to(dev), S))
+    k5_sets.append(k2_frame[:3])
+    k5, k5_launches = check_k5(k5_sets, k5_entry, cfg, dev)
+    k5_s = time.perf_counter() - t_phase
+
+    # ---- 7. full SLAM --------------------------------------------------------
+    t_phase = time.perf_counter()
+    slam_launches = slam_phase(cfg_on, dev)
+    for n in ("row_windows", "segment_topk_moments", "ndt_linearize",
+              "ndt_robust_cost", "chol_solve"):
+        if slam_launches[n] == 0:
+            raise AssertionError(f"full SLAM launched no {n}")
+    slam_s = time.perf_counter() - t_phase
+
+    def record(n, source, replaces, launches, measured):
+        return dict(name=n, route="cuda", source="randt_slam_torch/csrc/" + source,
+                    replaces="randt_slam_tpu/ops/" + replaces, launches=launches,
+                    **measured)
+
+    rows = [
+        record("row_windows", "window_slice.cu", "window_slice.py:49",
+               launches["off"]["row_windows"], k1),
+        record("segment_topk_moments", "segment_moments.cu", "segment_moments.py:154",
+               launches["off"]["segment_topk_moments"], k2),
+        record("segment_moments", "segment_sum.cu", "segment_moments.py:81",
+               k5_launches, k5),
+        record("ndt_linearize", "ndt_linearize.cu", "ndt_linearize.py:251",
+               launches["on"]["ndt_linearize"], k3a),
+        record("ndt_robust_cost", "ndt_linearize.cu", "ndt_linearize.py:282",
+               launches["on"]["ndt_robust_cost"], k3b),
+        record("chol_solve", "small_chol.cu", "small_chol.py:77",
+               launches["on"]["chol_solve"], k4),
     ]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kd[k] for k in keys} for kd in kernels]}))
+    print(f"chip_smoke: passed in {time.perf_counter() - t_start:.1f} s wall (set-up "
+          f"{setup_s:.1f} s, kernels and odometry {odometry_s:.1f} s, K5 {k5_s:.1f} s, "
+          f"full SLAM {slam_s:.1f} s)", flush=True)
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

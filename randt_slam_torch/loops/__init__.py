@@ -1,1 +1,1 @@
-"""Loop-closure descriptors."""
+"""Loop closure: ScanContext descriptors and retrieval, the batched detector."""

@@ -52,19 +52,18 @@ def _unpack(out) -> CellStats:
 
 def from_points(points, mask, segment_ids, num_segments,
                 polar=None, beam_cov=None) -> CellStats:
-    """Accumulate masked points into cells by segment id (plain PyTorch; the
-    JAX package's TPU kernel K5 for this full segment sum is not ported yet).
+    """Accumulate masked points into cells by segment id: all 13 moment
+    channels in one segment sum (kernel K5 on CUDA tensors, its plain
+    version on CPU tensors).
 
     points: (P, 3) [x, y, intensity]; mask: (P,) bool; segment_ids: (P,) int.
     Ids outside [0, num_segments) are dropped.  ``polar``/``beam_cov`` add the
     pNDT sensor-noise covariance (``ndt_cell.cpp:68-82``).
     """
+    from ..ops.segment_moments import segment_moments
+
     chans = _moment_channels(points, mask, polar, beam_cov)
-    ok = (segment_ids >= 0) & (segment_ids < num_segments)
-    safe = torch.where(ok, segment_ids, num_segments).long()
-    out = runtime.index_add(
-        chans.new_zeros((num_segments + 1, chans.shape[1])), safe, chans)
-    return _unpack(out[:num_segments])
+    return _unpack(segment_moments(chans, segment_ids, num_segments))
 
 
 @torch.profiler.record_function("randt.scan_ndt")
@@ -256,6 +255,32 @@ def solve3(S, d):
     y = (B * d[..., 0] + D * d[..., 1] + E * d[..., 2]) / det
     z = (C * d[..., 0] + E * d[..., 1] + F * d[..., 2]) / det
     return torch.stack([x, y, z], dim=-1)
+
+
+def pooled_quad_det(cov_a, cov_b, d):
+    """``(d^T S^-1 d, det S)`` for S = cov_a + cov_b, broadcasting (..., 3, 3)
+    covariances and a 3-list of (...) components of d.  The six entries of S
+    that the adjugate solve reads are formed one by one, so broadcasting a
+    (Q, 1) batch against a (1, F) one builds no (Q, F, 3, 3) tensor; the
+    arithmetic is :func:`solve3` and :func:`det3`'s."""
+    def e(i, j):
+        return cov_a[..., i, j] + cov_b[..., i, j]
+
+    a, b, e_ = e(0, 0), e(0, 1), e(0, 2)
+    c_, f = e(1, 1), e(1, 2)
+    g = e(2, 2)
+    A = c_ * g - f * f
+    B = e_ * f - b * g
+    Cc = b * f - c_ * e_
+    det = a * A + b * B + e_ * Cc
+    dsafe = torch.where(torch.abs(det) < 1e-30, 1e-30, det)
+    D = a * g - e_ * e_
+    E = b * e_ - a * f
+    F = a * c_ - b * b
+    x = (A * d[0] + B * d[1] + Cc * d[2]) / dsafe
+    y = (B * d[0] + D * d[1] + E * d[2]) / dsafe
+    z = (Cc * d[0] + E * d[1] + F * d[2]) / dsafe
+    return d[0] * x + d[1] * y + d[2] * z, det
 
 
 def det3(S):

@@ -14,6 +14,9 @@ pointing into a compact table of cells in sufficient-statistic form.
 Grid layout: row-major (iy, ix); ix = floor((x - offset_x)/res) with
 offset = -size/2 * res (``ndt_map.cpp:19-20``).  The JAX package's dense-grid
 functions are used by no pipeline path and are not ported.
+
+Loop closure associates against a compacted (flat) submap cell table:
+:func:`allpairs_neighbors`, batched over leading candidate dimensions.
 """
 
 from __future__ import annotations
@@ -215,25 +218,10 @@ def window_neighbors_sparse(
 def _select_topk(dist, gm, gc, k: int):
     """Pick the k nearest window cells per query (first index among ties, as
     ``argmin`` and ``lax.top_k`` both do)."""
-    if k <= 4:
-        means, covs, valids = [], [], []
-        for _ in range(k):
-            i = torch.argmin(dist, dim=-1)
-            v = torch.gather(dist, -1, i[..., None])[..., 0]
-            means.append(_take_row(gm, i))
-            covs.append(_take_row(gc, i))
-            valids.append(torch.isfinite(v))
-            dist = dist.scatter(-1, i[..., None], float("inf"))
-        return _sanitize(NeighborSet(
-            mean=torch.stack(means, dim=-2),
-            cov=torch.stack(covs, dim=-3),
-            valid=torch.stack(valids, dim=-1),
-        ))
-    order = torch.sort(dist, dim=-1, stable=True)[1][..., :k]
-    sel = torch.gather(dist, -1, order)
+    idx, sel = smallest_k(dist, k)
     return _sanitize(NeighborSet(
-        mean=torch.stack([_take_row(gm, order[..., j]) for j in range(k)], -2),
-        cov=torch.stack([_take_row(gc, order[..., j]) for j in range(k)], -3),
+        mean=torch.stack([_take_row(gm, idx[..., j]) for j in range(k)], -2),
+        cov=torch.stack([_take_row(gc, idx[..., j]) for j in range(k)], -3),
         valid=torch.isfinite(sel),
     ))
 
@@ -253,3 +241,60 @@ def _sanitize(nb: NeighborSet) -> NeighborSet:
         cov=torch.where(v[..., None], nb.cov, eye),
         valid=nb.valid,
     )
+
+
+def _pair_mahalanobis(q_mean, q_cov, f_mean, f_cov):
+    """:func:`cells.mahalanobis_sq_intensity` of every (query, fixed) pair:
+    q_* (..., Q, ...) against f_* (..., F, ...) -> (..., Q, F), without a
+    (..., Q, F, 3, 3) pooled-covariance tensor."""
+    d = [f_mean[..., None, :, i] - q_mean[..., :, None, i] for i in range(3)]
+    return C.pooled_quad_det(q_cov[..., :, None, :, :], f_cov[..., None, :, :, :],
+                             d)[0]
+
+
+def smallest_k(dist, k: int):
+    """``(idx, val)``, each (..., k): the ``k`` smallest entries along the
+    last dim, lower index first among equal values (the order of
+    ``lax.top_k`` on the negated values).  Repeated ``argmin`` (first index
+    among ties) for small ``k``, a stable sort otherwise.  An entry once
+    taken is set to +inf, so a row with fewer than ``k`` finite entries may
+    repeat an index with value inf there; callers mark inf picks invalid."""
+    if k <= 4:
+        idx, val = [], []
+        for _ in range(k):
+            i = torch.argmin(dist, dim=-1, keepdim=True)
+            idx.append(i)
+            val.append(torch.gather(dist, -1, i))
+            dist = dist.scatter(-1, i, float("inf"))
+        return torch.cat(idx, dim=-1), torch.cat(val, dim=-1)
+    val, idx = torch.sort(dist, dim=-1, stable=True)
+    return idx[..., :k], val[..., :k]
+
+
+@torch.profiler.record_function("randt.allpairs_neighbors")
+def allpairs_neighbors(f_mean, f_cov, f_valid, q_mean, q_cov, q_valid, k: int,
+                       linf_cutoff: float,
+                       use_distribution_metric: bool = True) -> NeighborSet:
+    """Top-k neighbors of every query cell in a compacted (flat) fixed-cell
+    table: the reference ring search's spatial window becomes an L-inf
+    cutoff on the mean positions.  f_* (..., F, ...), q_* (..., Q, ...),
+    with the same leading (candidate) dimensions; returns (..., Q, k, ...)."""
+    diff_xy = f_mean[..., None, :, :2] - q_mean[..., :, None, :2]  # (.., Q, F, 2)
+    within = torch.amax(torch.abs(diff_xy), dim=-1) <= linf_cutoff
+    ok = within & f_valid[..., None, :] & q_valid[..., :, None]
+    if use_distribution_metric:
+        dist = _pair_mahalanobis(q_mean, q_cov, f_mean, f_cov)
+    else:
+        dist = torch.sum(diff_xy * diff_xy, dim=-1)
+    dist = torch.where(ok, dist, float("inf"))
+    idx, sel = smallest_k(dist, k)                                  # (.., Q, k)
+    lead = f_mean.shape[:-2]
+    flat = idx.reshape(*lead, -1)                                   # (.., Q*k)
+    mean = torch.gather(f_mean, -2, flat[..., None].expand(*flat.shape, 3))
+    cov = torch.gather(f_cov.reshape(*lead, -1, 9), -2,
+                       flat[..., None].expand(*flat.shape, 9))
+    return _sanitize(NeighborSet(
+        mean=mean.reshape(*idx.shape, 3),
+        cov=cov.reshape(*idx.shape, 3, 3),
+        valid=torch.isfinite(sel),
+    ))

@@ -25,10 +25,11 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-SOURCES = ("window_slice", "segment_moments", "ndt_linearize", "small_chol")
+SOURCES = ("window_slice", "segment_moments", "segment_sum", "ndt_linearize",
+           "small_chol")
 
-LAUNCHES = {"row_windows": 0, "segment_topk_moments": 0, "ndt_linearize": 0,
-            "ndt_robust_cost": 0, "chol_solve": 0}
+LAUNCHES = {"row_windows": 0, "segment_topk_moments": 0, "segment_moments": 0,
+            "ndt_linearize": 0, "ndt_robust_cost": 0, "chol_solve": 0}
 
 _LIBS: dict = {}
 

@@ -21,8 +21,10 @@ waits on the device.
 CUDA tensor, their plain versions on a CPU tensor.  Off, the NDT blocks come
 from reverse-mode autograd and the solve from ``torch.linalg.solve_ex``.
 
-``estimate_loop`` and ``global_grid_search`` (loop closure) are not ported
-yet.
+Loop closure: :func:`estimate_loop` (``estimateLoopConstraint``, :426-493)
+refines a batch of candidate relative poses together, and
+:func:`global_grid_search` (``estimateTransformGlobalBNB``, :495-608) is the
+correlative pre-alignment, also batched over candidates.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 
 from .. import runtime
 from ..config import SlamConfig
-from ..geometry import normalize_angle, rotmat
+from ..geometry import compose, normalize_angle, rotmat
 from ..ndt import grid as G
 from ..ops import ndt_linearize as NL
 from ..ops import small_chol
@@ -374,3 +376,195 @@ def estimate_window(
         cost=res.cost,
         n_residuals=res.n_ndt_valid,
     )
+
+
+def _loop_pairs(m_mean, m_cov, m_valid, assoc: G.NeighborSet):
+    """Moving cells broadcast against their (B, C, K) neighbors, with benign
+    values for invalid (padded) moving cells."""
+    eye3 = torch.eye(3, dtype=m_cov.dtype, device=m_cov.device)
+    safe_mean = torch.where(m_valid[..., None], m_mean, 0.0)
+    safe_cov = torch.where(m_valid[..., None, None], m_cov, eye3)
+    return (safe_mean[..., :, None, :].expand(assoc.mean.shape),
+            safe_cov[..., :, None, :, :].expand(assoc.cov.shape))
+
+
+@torch.profiler.record_function("randt.csm_search")
+def global_grid_search(cfg: SlamConfig, init_pose, f_mean, f_cov, f_valid,
+                       m_mean, m_cov, m_valid, search_window_linear=None,
+                       search_window_angular=None, beam_width: int = 16,
+                       use_intensity=None):
+    """Correlative-scan-matching global search (``estimateTransformGlobalBNB``,
+    ``ndt_matcher.cpp:495-608``) for a batch of candidates: init_pose (B, 3),
+    f_* (B, F, ...), m_* (B, C, ...).  Returns (best pose (B, 3), best cost
+    (B,)).
+
+    As in the JAX package: the whole coarsest grid is scored as one batch,
+    then ``csm_n_iter`` levels keep the ``beam_width`` best candidates and
+    expand each into its 3x3x3 half-step neighbourhood.  Scoring is the
+    Barron cost (no GNC, :517) averaged over the residual pairs, with the
+    association made once at the centre pose (:520).  Only candidates below
+    ``csm_cost_threshold`` are expanded or returned (:544-561); with none,
+    the initial pose and cost inf come back (the JAX package's deviation from
+    the reference's identity return)."""
+    mcfg = cfg.matcher
+    if use_intensity is None:
+        use_intensity = bool(mcfg.use_intensity_as_dimension)
+    win_l = mcfg.csm_window_linear if search_window_linear is None else min(
+        search_window_linear, mcfg.csm_window_linear)
+    win_a = mcfg.csm_window_angular if search_window_angular is None else min(
+        search_window_angular, mcfg.csm_window_angular)
+    lin_step = mcfg.csm_linear_step
+    ang_step = float(np.arccos(
+        1.0 - (lin_step * lin_step) / (2.0 * mcfg.csm_max_px_accurate_range ** 2)))
+    n_iter = mcfg.csm_n_iter
+    K = 4  # fixed neighbor count of the reference's CSM association (:520)
+    dtype, dev = init_pose.dtype, init_pose.device
+
+    q_mu, q_cov = transform_mean_cov(init_pose, m_mean, m_cov)
+    # Association happens once at the window centre; the cutoff must cover
+    # cells reachable anywhere inside the search window.
+    cutoff = (cfg.ndt_map.nn_window_radius + 0.5) * cfg.ndt_map.resolution
+    cutoff = max(cutoff, 0.5 * win_l + cfg.ndt_map.resolution)
+    assoc = G.allpairs_neighbors(
+        f_mean, f_cov, f_valid, q_mu, q_cov, m_valid, K, cutoff,
+        use_distribution_metric=bool(mcfg.lookup_distribution) and use_intensity)
+    pair_valid = assoc.valid                                    # (B, C, K)
+    m_mu_b, m_cov_b = _loop_pairs(m_mean, m_cov, m_valid, assoc)
+    n_pairs = torch.clamp(torch.sum(pair_valid, dim=(-2, -1)), min=1)
+
+    def score(poses):  # (B, G, 3) -> (B, G) mean robust cost
+        r = R.ndt_residual(
+            poses[:, :, None, None, :], m_mu_b[:, None], m_cov_b[:, None],
+            assoc.mean[:, None], assoc.cov[:, None], use_intensity=use_intensity)
+        rho = barron.rho(r * r, mcfg.loss_function_scale,
+                         mcfg.loss_function_convexity, 1.0)
+        c = torch.sum(torch.where(pair_valid[:, None], rho, 0.0), dim=(-2, -1))
+        return 0.5 * c / n_pairs[:, None]  # Ceres cost convention (0.5 sum rho)
+
+    # coarsest level grid around init_pose
+    step0 = (2.0 ** (n_iter - 1)) * lin_step
+    nx = max(1, int(win_l / step0)) + 1
+    na = max(1, int(win_a / ang_step))
+    txs = torch.linspace(-win_l / 2.0, win_l / 2.0, nx, dtype=dtype, device=dev)
+    angs = -win_a / 2.0 + torch.arange(na, dtype=dtype, device=dev) * ang_step
+    TX, TY, AA = torch.meshgrid(txs, txs, angs, indexing="ij")
+    local = torch.stack([TX.reshape(-1), TY.reshape(-1), AA.reshape(-1)], dim=-1)
+    cands = compose(init_pose[:, None, :], local[None])        # (B, G, 3)
+    costs = score(cands)
+    thresh = mcfg.csm_cost_threshold
+
+    def fold_best(best_pose, best_cost, cands, costs):
+        """Running optimum over below-threshold candidates only."""
+        masked = torch.where(costs < thresh, costs, float("inf"))
+        i = torch.argmin(masked, dim=-1, keepdim=True)
+        m = torch.gather(masked, -1, i)[:, 0]
+        pick = torch.gather(cands, 1, i[..., None].expand(-1, 1, 3))[:, 0]
+        return (torch.where((m < best_cost)[:, None], pick, best_pose),
+                torch.minimum(m, best_cost))
+
+    best_pose, best_cost = fold_best(
+        init_pose, torch.full(init_pose.shape[:1], float("inf"), dtype=dtype,
+                              device=dev), cands, costs)
+    offs = runtime.const(
+        np.array([[dx, dy, da] for dx in (-1.0, 0.0, 1.0) for dy in (-1.0, 0.0, 1.0)
+                  for da in (-1.0, 0.0, 1.0)], np.float32), dtype, dev)
+    for level in range(1, n_iter + 1):
+        # Only below-threshold candidates may seed expansions (:544); the
+        # beam is nearest first, lower index first among ties (lax.top_k).
+        expandable = torch.where(costs < thresh, costs, float("inf"))
+        top_i, top_c = G.smallest_k(expandable, min(beam_width, costs.shape[-1]))
+        parent_ok = torch.isfinite(top_c)
+        best = torch.gather(cands, 1, top_i[..., None].expand(-1, -1, 3))
+        step = (2.0 ** max(n_iter - 1 - level, -1)) * lin_step
+        local = offs * runtime.const(np.array([step, step, ang_step], np.float32),
+                                     dtype, dev)
+        cands = compose(best[:, :, None, :], local[None, None]).reshape(
+            best.shape[0], -1, 3)
+        costs = score(cands)
+        costs = torch.where(
+            torch.repeat_interleave(parent_ok, offs.shape[0], dim=-1),
+            costs, float("inf"))
+        best_pose, best_cost = fold_best(best_pose, best_cost, cands, costs)
+    return best_pose, best_cost
+
+
+class LoopEstimate(NamedTuple):
+    pose: torch.Tensor       # (B, 3)
+    mean_cost: torch.Tensor  # (B,) final robust cost / residual count
+    n_pairs: torch.Tensor    # (B,)
+
+
+@torch.profiler.record_function("randt.loop_refine")
+def estimate_loop(cfg: SlamConfig, init_pose, f_mean, f_cov, f_valid,
+                  m_mean, m_cov, m_valid) -> LoopEstimate:
+    """GNC refinement of a batch of loop-closure candidates
+    (``Matcher::estimateLoopConstraint``, ``ndt_matcher.cpp:426-493``):
+    init_pose (B, 3) relative transforms, f_* (B, F, ...) compacted fixed
+    submap cells, m_* (B, C, ...) moving scan cells.
+
+    The fixed submap is a flat cell list, so association is the masked
+    all-pairs top-k with the search window's L-inf cutoff.
+    ``use_intensity_in_loop_closure`` picks the 3-D or 2-D residual and the
+    lookup metric (``local_fuser.cpp:335``).  The JAX package linearizes the
+    3-parameter pose densely with ``jax.jacfwd``; here each residual's
+    Jacobian row comes from reverse mode on per-residual copies of its
+    candidate's pose (one backward pass per linearization), and the damped
+    3x3 solves are one batched ``solve_ex``."""
+    mcfg = cfg.matcher
+    lcfg = cfg.local_fuser
+    K = mcfg.n_results_nn_lookup
+    use_int = bool(lcfg.use_intensity_in_loop_closure)
+    B = init_pose.shape[0]
+    dtype, dev = init_pose.dtype, init_pose.device
+
+    q_mu, q_cov = transform_mean_cov(init_pose, m_mean, m_cov)
+    cutoff = (cfg.ndt_map.nn_window_radius + 0.5) * cfg.ndt_map.resolution
+    assoc = G.allpairs_neighbors(
+        f_mean, f_cov, f_valid, q_mu, q_cov, m_valid, K, cutoff,
+        use_distribution_metric=bool(mcfg.lookup_distribution) and use_int)
+    pair_valid = assoc.valid                                    # (B, C, K)
+    m_mu_b, m_cov_b = _loop_pairs(m_mean, m_cov, m_valid, assoc)
+    scale = lcfg.loop_closure_scale
+    alpha = mcfg.loss_function_convexity
+    ndt_scale = torch.ones((B,), dtype=dtype, device=dev)  # ScaledLoss 1 (:479)
+    no_aux = torch.zeros((1,), dtype=torch.bool, device=dev)
+
+    def residual_fn(pose):
+        r = R.ndt_residual(pose[:, None, None, :], m_mu_b, m_cov_b,
+                           assoc.mean, assoc.cov, use_intensity=use_int)
+        return r.reshape(B, -1), pose.new_zeros((B, 1))
+
+    def linearize_fn(pose, mu):
+        with torch.enable_grad():
+            pr = pose.detach()[:, None, None, :].expand(
+                *pair_valid.shape, 3).clone().requires_grad_(True)
+            r = R.ndt_residual(pr, m_mu_b, m_cov_b, assoc.mean, assoc.cov,
+                               use_intensity=use_int)
+            (J,) = torch.autograd.grad(r.sum(), pr)
+        r = r.detach()
+        w = barron.weight(r * r, scale, alpha, mu[:, None, None])
+        w = torch.where(pair_valid, w, 0.0)
+        H = torch.einsum("bck,bcki,bckj->bij", w, J, J)
+        g = torch.einsum("bck,bcki->bi", w * r, J)
+        return H, g
+
+    res = solver.gnc_solve(
+        residual_fn,
+        linearize_fn,
+        init_pose,
+        runtime.const(np.ones(3, bool), torch.bool, dev),
+        runtime.const(np.array([False, False, True]), torch.bool, dev),
+        pair_valid.reshape(B, -1),
+        no_aux,
+        ndt_scale,
+        scale,
+        alpha,
+        lcfg.loop_closure_gnc_steps,
+        mcfg.gnc_control_parameter_divisor,
+        mcfg.lm_max_iterations,
+        mcfg.lm_tolerance,
+        lm_ftol=mcfg.lm_function_tolerance,
+    )
+    n = torch.clamp(res.n_ndt_valid, min=1)
+    return LoopEstimate(pose=res.params, mean_cost=res.cost / n,
+                        n_pairs=res.n_ndt_valid)

@@ -16,6 +16,13 @@ host never waits on the device inside them:
   ``mu0 <= divisor^(gnc_steps-1)``, the JAX loop never runs more rounds.
 
 The result equals the early-exit loops' up to the order of float operations.
+
+Both loops take an optional leading batch dimension on the parameters,
+(B, P): loop closure refines its candidates together, as the JAX package's
+``jax.vmap(estimate_loop)`` does.  Every per-problem quantity (cost,
+damping, the ``done`` freeze, mu and the GNC ``run`` flag) then has shape
+(B,), so one candidate's exit never touches another's state.  Unbatched
+parameters (P,) take the same operations with batch shape ().
 """
 
 from __future__ import annotations
@@ -35,9 +42,11 @@ class SolveResult(NamedTuple):
 
 
 def _robust_cost(r_ndt, r_aux, ndt_valid, aux_valid, ndt_scale, scale, alpha, mu):
+    """Robust cost of residual stacks (..., N), mu and ndt_scale (...)."""
     s = r_ndt * r_ndt
-    c_ndt = torch.sum(torch.where(ndt_valid, barron.rho(s, scale, alpha, mu), 0.0))
-    c_aux = torch.sum(torch.where(aux_valid, r_aux * r_aux, 0.0))
+    rho = barron.rho(s, scale, alpha, mu[..., None])
+    c_ndt = torch.sum(torch.where(ndt_valid, rho, 0.0), dim=-1)
+    c_aux = torch.sum(torch.where(aux_valid, r_aux * r_aux, 0.0), dim=-1)
     return 0.5 * (ndt_scale * c_ndt + c_aux)
 
 
@@ -61,9 +70,9 @@ def lm_solve(
 ):
     """Damped Gauss-Newton (LM) at a fixed GNC mu, ``max_iters`` iterations.
 
-    residual_fn(params) -> (r_ndt (Nn,), r_aux (Na,));
-    linearize_fn(params, mu) -> (H (P, P), g (P,)), the IRLS-weighted normal
-    equations (the window estimator's block-structured linearizer);
+    residual_fn(params) -> (r_ndt (..., Nn), r_aux (..., Na));
+    linearize_fn(params, mu) -> (H (..., P, P), g (..., P)), the
+    IRLS-weighted normal equations; params (..., P), mu (...);
     cost_fn(params, mu) -> robust cost, if given, replaces the cost from
     ``residual_fn`` (the fused K3b pass); solve_fn(A, b) -> x, if given,
     replaces ``torch.linalg.solve_ex`` for the damped SPD system (K4).
@@ -77,20 +86,22 @@ def lm_solve(
         return _robust_cost(rn, ra, ndt_valid, aux_valid, ndt_scale, scale,
                             alpha, mu)
 
+    batch = params0.shape[:-1]
     p = params0
     c = cost_at(params0)
-    lam = torch.full((), 1e-4, dtype=params0.dtype, device=params0.device)
-    done = torch.zeros((), dtype=torch.bool, device=params0.device)
+    lam = torch.full(batch, 1e-4, dtype=params0.dtype, device=params0.device)
+    done = torch.zeros(batch, dtype=torch.bool, device=params0.device)
     for _ in range(max_iters):
         H, g = linearize_fn(p, mu)
         # Jacobi-scale the normal equations before solving (curvatures span
         # ~10 decades; an unscaled float32 solve leaks error into the weak
         # directions).  After scaling, active diagonals are 1 and the
         # Marquardt damping is lam * I.
-        dscale = torch.rsqrt(torch.clamp(torch.diagonal(H), min=1e-10)) * active_f
-        Hs = H * dscale[:, None] * dscale[None, :]
-        damp = lam * active_f + (1.0 - active_f)
-        A = Hs + torch.diag(damp)
+        diag = torch.diagonal(H, dim1=-2, dim2=-1)
+        dscale = torch.rsqrt(torch.clamp(diag, min=1e-10)) * active_f
+        Hs = H * dscale[..., :, None] * dscale[..., None, :]
+        damp = lam[..., None] * active_f + (1.0 - active_f)
+        A = Hs + torch.diag_embed(damp)
         rhs = g * dscale
         # solve_ex: no host-side check of the factorization's info flag.
         delta_s = -(torch.linalg.solve_ex(A, rhs)[0] if solve_fn is None
@@ -101,17 +112,17 @@ def lm_solve(
         trial = torch.where(angle_mask, normalize_angle(trial), trial)
         c_new = cost_at(trial)
         accept = c_new < c
-        p_next = torch.where(accept, trial, p)
+        p_next = torch.where(accept[..., None], trial, p)
         c_next = torch.where(accept, c_new, c)
         lam_next = torch.clamp(torch.where(accept, lam / 3.0, lam * 4.0),
                                1e-10, 1e8)
         # Ceres parameter_tolerance (relative step) and function_tolerance.
-        p_norm = torch.linalg.vector_norm(p * active_f)
-        small = torch.linalg.vector_norm(delta) <= tol * (p_norm + tol)
+        p_norm = torch.linalg.vector_norm(p * active_f, dim=-1)
+        small = torch.linalg.vector_norm(delta, dim=-1) <= tol * (p_norm + tol)
         flat = (c - c_new) <= ftol * c
         done_next = (accept & (small | flat)) | ((~accept) & (lam >= 1e7))
         # Freeze once the early-exit loop would have stopped.
-        p = torch.where(done, p, p_next)
+        p = torch.where(done[..., None], p, p_next)
         c = torch.where(done, c, c_next)
         lam = torch.where(done, lam, lam_next)
         done = done | done_next
@@ -149,7 +160,7 @@ def gnc_solve(
         s0_max = r2max_fn(params0)
     else:
         rn0, _ = residual_fn(params0)
-        s0_max = torch.amax(torch.where(ndt_valid, rn0 * rn0, 0.0))
+        s0_max = torch.amax(torch.where(ndt_valid, rn0 * rn0, 0.0), dim=-1)
     mu = barron.gnc_mu_init(s0_max, scale, gnc_steps, divisor)
 
     p = params0
@@ -164,7 +175,7 @@ def gnc_solve(
             p, mu = p_new, mu / divisor
         else:
             run = barron.gnc_continue(mu, divisor)
-            p = torch.where(run, p_new, p)
+            p = torch.where(run[..., None], p_new, p)
             mu = torch.where(run, mu / divisor, mu)
     mu_fin = torch.clamp(mu, min=1.0)
     if cost_fn is not None:
@@ -173,4 +184,5 @@ def gnc_solve(
         rn, ra = residual_fn(p)
         final_cost = _robust_cost(rn, ra, ndt_valid, aux_valid, ndt_scale,
                                   scale, alpha, mu_fin)
-    return SolveResult(params=p, cost=final_cost, n_ndt_valid=torch.sum(ndt_valid))
+    return SolveResult(params=p, cost=final_cost,
+                       n_ndt_valid=torch.sum(ndt_valid, dim=-1))

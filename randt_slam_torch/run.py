@@ -1,16 +1,19 @@
-"""Command-line entry point of the PyTorch port (offline odometry).
+"""Command-line entry point of the PyTorch port (offline SLAM).
 
-Offline odometry replay over a synthetic world or a converted ``.npz``
-sequence, with the trajectory exports and metrics of
-``randt_slam_tpu/run.py``: TUM + KITTI trajectories (per-frame odometry and
-nodes) and ``metrics.json`` (odometry ATE/RPE against ground truth, frames/s).
+Offline replay over a synthetic world or a converted ``.npz`` sequence, with
+the trajectory exports and metrics of ``randt_slam_tpu/run.py``: full SLAM
+(odometry, loop closure, pose-graph optimization) by default, odometry alone
+with ``--odometry-only``; TUM + KITTI trajectories (per-frame odometry and
+the nodes) and ``metrics.json`` (``n_loop_closures``, odometry and SLAM
+ATE/RPE against ground truth, frames/s, per-phase wall seconds).
 
 Usage:
     python -m randt_slam_torch.run --input synthetic --config synthetic \\
-        --odometry-only --output /tmp/t [--device cpu]
+        --loop --frames 130 --output /tmp/t [--device cpu]
 
-Loop closure, pose-graph optimization, the OGM and online mode arrive in
-later slices of the port; asking for them exits with an error.
+The OGM (``--ogm``), online mode (``--online``), checkpoints
+(``--checkpoint``) and the map render (``--render``) arrive in later slices
+of the port; asking for them exits with an error.
 """
 
 from __future__ import annotations
@@ -33,12 +36,16 @@ def build_parser():
     p.add_argument("--output", required=True, help="output directory")
     p.add_argument("--frames", type=int, default=None, help="frame cap")
     p.add_argument("--odometry-only", action="store_true",
-                   help="run phase A only (required in this slice)")
+                   help="skip loop closure and pose-graph optimization")
     p.add_argument("--loop", action="store_true",
-                   help="closed-loop synthetic trajectory (later slice)")
+                   help="synthetic: closed-loop trajectory")
     p.add_argument("--ogm", action="store_true", help="render the OGM (later slice)")
     p.add_argument("--online", action="store_true",
                    help="incremental mode (later slice)")
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint file (later slice)")
+    p.add_argument("--render", action="store_true",
+                   help="render a map snapshot (later slice)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device; default cuda (which must exist)")
@@ -61,7 +68,7 @@ def load_frames(args, device):
 
     if args.input == "synthetic":
         seq = synthetic.generate(seed=args.seed, n_frames=args.frames or 120,
-                                 n_azimuths=256, n_bins=256)
+                                 n_azimuths=256, n_bins=256, loop=args.loop)
     else:
         seq = oxford.load_npz_sequence(args.input, max_frames=args.frames)
     frames = slam.frames_from_arrays(
@@ -73,12 +80,12 @@ def load_frames(args, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    later = [flag for flag, on in (("--loop", args.loop), ("--ogm", args.ogm),
-                                   ("--online", args.online)) if on]
-    if not args.odometry_only or later:
-        what = ", ".join(later) if later else "full SLAM (without --odometry-only)"
-        print(f"randt_slam_torch.run: {what} arrives in a later slice of the "
-              "port; this slice runs --odometry-only", file=sys.stderr)
+    later = [flag for flag, on in (("--ogm", args.ogm), ("--online", args.online),
+                                   ("--checkpoint", args.checkpoint),
+                                   ("--render", args.render)) if on]
+    if later:
+        print(f"randt_slam_torch.run: {', '.join(later)} arrives in a later "
+              "slice of the port", file=sys.stderr)
         return 2
 
     import numpy as np
@@ -92,31 +99,41 @@ def main(argv=None):
     cfg = load_config(args)
     frames, gt_poses, stamps = load_frames(args, device)
     t0 = time.perf_counter()
-    res = slam.run_odometry(cfg, frames, device=device)
+    timings = {}
+    if args.odometry_only:
+        odo = slam.run_odometry(cfg, frames, device=device)
+        node_pose, n_loops = odo.node_pose, 0
+    else:
+        res = slam.run_slam(cfg, frames, device=device)
+        odo = res.odometry
+        node_pose, n_loops = res.node_pose_optimized, res.loops.n_accepted
+        timings = {k: v for k, v in res.timings.items()
+                   if isinstance(v, float)}
+        timings.update({f"loops.{k}": v for k, v in res.loops.timings.items()})
     wall = time.perf_counter() - t0
-    odom = res.odom_poses
+    odom = odo.odom_poses
     T = len(odom)
 
     formats.write_tum(os.path.join(args.output, "odom_tum.txt"), stamps, odom)
     formats.write_kitti(os.path.join(args.output, "odom_kitti.txt"), odom)
     formats.write_tum(os.path.join(args.output, "slam_tum.txt"),
-                      res.node_stamp, res.node_pose)
-    formats.write_kitti(os.path.join(args.output, "slam_kitti.txt"),
-                        res.node_pose)
+                      odo.node_stamp, node_pose)
+    formats.write_kitti(os.path.join(args.output, "slam_kitti.txt"), node_pose)
 
     metrics = {
         "frames": T,
         "wall_s": round(wall, 3),
         "frames_per_second": round(T / wall, 2),
         "device": str(device),
-        "n_nodes": int(len(res.node_pose)),
-        "n_loop_closures": 0,
-        "saturation": res.saturation,
+        "n_nodes": int(len(node_pose)),
+        "n_loop_closures": int(n_loops),
+        "saturation": odo.saturation,
+        "timings": timings,
     }
     if gt_poses is not None:
         metrics["odom_ate_m"] = round(formats.ate(odom, gt_poses[:T]), 4)
         metrics["slam_ate_m"] = round(
-            formats.ate(res.node_pose, gt_poses[res.node_frame]), 4)
+            formats.ate(node_pose, gt_poses[odo.node_frame]), 4)
         t_rpe, r_rpe = formats.rpe(odom, gt_poses[:T])
         metrics["odom_rpe_m"] = round(t_rpe, 4)
         metrics["odom_rpe_deg"] = round(r_rpe, 4)

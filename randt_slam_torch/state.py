@@ -1,4 +1,4 @@
-"""Front-end state carried across: numpy trees <-> the port's carry.
+"""State carried across: numpy trees <-> the port's carries and results.
 
 :func:`carry_from_numpy` turns a ``FrontendCarry`` whose leaves are numpy
 arrays -- for example the JAX package's carry after ``np.asarray`` on every
@@ -6,16 +6,25 @@ leaf -- into this package's carry on a device; :func:`carry_to_numpy` goes
 back.  Fields are matched by name through ``_asdict()``, nested ``CellStats``
 and ``SparseGrid`` included, so neither side needs to import the other.  The
 cadence counters (``frontend.HOST_FIELDS``) become Python values.
+
+:func:`odometry_from_numpy` and :func:`pose_graph_from_numpy` do the same
+for an odometry result and a pose graph, so that loop closure and the pose
+graph can be held to the reference from identical inputs.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from . import runtime
+from .graph.pose_graph import PoseGraph
 from .ndt.cells import CellStats
 from .ndt.grid import SparseGrid
 from .pipeline.frontend import HOST_FIELDS, FrontendCarry
+from .pipeline.slam import OdometryResult
 
 _NESTED = {"kq_stats": CellStats, "store_cells": CellStats,
            "submap": SparseGrid, "prev_submap": SparseGrid}
@@ -59,3 +68,43 @@ def _to(value):
 def carry_to_numpy(carry: FrontendCarry) -> FrontendCarry:
     """The same carry with numpy leaves (counters as 0-d numpy scalars)."""
     return FrontendCarry(*(_to(v) for v in carry))
+
+
+_DEVICE_FIELDS = ("submap_cells_n", "submap_cells_s", "submap_cells_ss")
+
+
+def odometry_from_numpy(tree, device) -> OdometryResult:
+    """An ``OdometryResult`` whose submap store lies on ``device`` (CUDA
+    unless ``device="cpu"``), from an object with the same field names and
+    numpy (or array-like) values -- for example the JAX package's result
+    after ``np.asarray`` on its store.  The final carry is not carried
+    across."""
+    device = runtime.resolve_device(device)
+    out = {}
+    for f in dataclasses.fields(OdometryResult):
+        value = getattr(tree, f.name, None)
+        if f.name in _DEVICE_FIELDS:
+            out[f.name] = torch.from_numpy(np.array(value)).to(device)
+        elif f.name == "final_carry":
+            out[f.name] = None
+        elif f.name == "saturation":
+            out[f.name] = dict(value or {})
+        elif f.name == "n_submaps":
+            out[f.name] = int(value)
+        elif value is not None:
+            out[f.name] = np.asarray(value)
+    return OdometryResult(**out)
+
+
+def pose_graph_from_numpy(tree, device) -> PoseGraph:
+    """A ``PoseGraph`` on ``device`` (CUDA unless ``device="cpu"``) from one
+    with numpy leaves, by field name (ids as int64)."""
+    device = runtime.resolve_device(device)
+    d = tree._asdict()
+    out = {}
+    for name in PoseGraph._fields:
+        t = torch.from_numpy(np.array(d[name]))
+        if name in ("id_begin", "id_end"):
+            t = t.long()
+        out[name] = t.to(device)
+    return PoseGraph(**out)

@@ -5,7 +5,7 @@
 * Entry points run on CUDA unless asked for the CPU: with no device and no
   CUDA they raise instead of dropping to the CPU.
 * Its configuration presets equal the JAX package's field by field.
-* The CLI runs odometry and refuses what later slices bring.
+* The CLI runs full SLAM and odometry and refuses what later slices bring.
 """
 
 import ast
@@ -77,6 +77,16 @@ def test_entry_points_need_a_device_without_cuda():
                                      np.arange(8.0), np.zeros(1), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         slam.run_odometry(cfg, frames)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        slam.run_slam(cfg, frames)
+    from randt_slam_torch import state
+    from randt_slam_torch.loops import detector
+
+    for fn in (detector.detect_loops, detector.detect_loops_mahalanobis):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(cfg, None, frames)  # the device is resolved first
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        state.odometry_from_numpy(None, None)
 
 
 @pytest.mark.parametrize("preset", ["synthetic_config", "oxford_config",
@@ -113,9 +123,27 @@ def test_cli_odometry_only(tmp_path, source):
     assert len((out / "odom_tum.txt").read_text().splitlines()) == 8
 
 
-@pytest.mark.parametrize("extra", [[], ["--odometry-only", "--loop"],
-                                   ["--odometry-only", "--ogm"],
-                                   ["--odometry-only", "--online"]])
+def test_cli_full_slam(tmp_path):
+    out = tmp_path / "run"
+    cmd = [sys.executable, "-m", "randt_slam_torch.run", "--input", "synthetic",
+           "--config", "synthetic", "--loop", "--frames", "20", "--device", "cpu",
+           "--output", str(out)]
+    env = dict(os.environ, OMP_NUM_THREADS="1")  # small eager ops: one thread
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    for f in ("odom_tum.txt", "odom_kitti.txt", "slam_tum.txt", "slam_kitti.txt",
+              "metrics.json"):
+        assert (out / f).exists(), f
+    m = json.loads((out / "metrics.json").read_text())
+    assert m["frames"] == 20 and m["n_loop_closures"] >= 0
+    assert np.isfinite(m["odom_ate_m"]) and np.isfinite(m["slam_ate_m"])
+    for k in ("odometry_s", "loop_closure_s", "pgo_s"):
+        assert m["timings"][k] >= 0.0, k
+
+
+@pytest.mark.parametrize("extra", [["--ogm"], ["--online"], ["--checkpoint", "ck"],
+                                   ["--odometry-only", "--render"]])
 def test_cli_refuses_later_slices(tmp_path, extra):
     cmd = [sys.executable, "-m", "randt_slam_torch.run", "--input", "synthetic",
            "--device", "cpu", "--output", str(tmp_path / "x"), *extra]

@@ -8,6 +8,10 @@ PyTorch is installed:
 * K1 ``row_windows``: bitwise equal to the plain version (a gather).
 * K2 ``segment_topk_moments``: the same ``topi``; moments within 1e-5 of the
   sum of the absolute values of their terms; two launches bitwise equal.
+* K5 ``segment_moments``: within 1e-5 of the sum of the absolute values of
+  its terms of the plain version at (P, S) = (5000, 700) and (26000, 3249),
+  dropped ids included; two launches bitwise equal; one launch per
+  ``cells.from_points`` call.
 * K3a ``ndt_linearize`` and K3b ``ndt_robust_cost``: within 1e-4 of each
   output's scale (the sum of the absolute values of its per-pair terms) of
   the plain versions (a few ulps of each term: the kernel contracts
@@ -22,6 +26,9 @@ PyTorch is installed:
   on, each ``estimate_window`` call launches K3a and K4 gnc_steps x
   lm_max_iterations times and K3b 2 + gnc_steps x (1 + lm_max_iterations)
   times, with them off none of the three; each run repeats bitwise.
+* Full SLAM on the CPU tests' loop sequence: loop closure and the pose
+  graph on the CPU from the card's odometry give the card's tables, with
+  the free-running edges and CS values inside ``chip_smoke.py``'s band.
 """
 
 import numpy as np
@@ -73,6 +80,39 @@ def test_segment_topk_kernel_matches_plain(dev):
     assert torch.equal(topi, topi2) and torch.equal(out, again)
     assert torch.equal(topi.cpu(), cpu_topi)
     assert bool(((out - plain).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,S", [(5000, 700), (26000, 3249)])
+def test_segment_moments_kernel_matches_plain(dev, P, S):
+    rng = np.random.default_rng(P)
+    vals = torch.from_numpy(rng.normal(0, 30.0, (P, 13)).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.integers(-1, S + 2, P).astype(np.int32)).to(dev)
+    out = K2.segment_moments(vals, ids, S)
+    again = K2.segment_moments(vals, ids, S)
+    plain = K2.segment_moments_plain(vals, ids, S)
+    scale = K2.segment_moments_plain(vals.abs(), ids, S)
+    torch.cuda.synchronize()
+    assert out.shape == (S, 13) and torch.equal(out, again)
+    assert bool(((out - plain).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.cuda
+def test_from_points_launches_k5_once(dev):
+    from randt_slam_torch.ndt import cells
+
+    rng = np.random.default_rng(5)
+    P, S = 4000, 600
+    pts = torch.from_numpy(rng.normal(0, 30, (P, 3)).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(rng.random(P) < 0.7).to(dev)
+    ids = torch.from_numpy(rng.integers(0, S, P)).to(dev)
+    build.reset_launches()
+    c = cells.from_points(pts, mask, ids, S)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["segment_moments"] == 1
+    ref = cells.from_points(pts.cpu(), mask.cpu(), ids.cpu(), S)
+    for a, b in zip(c, ref):
+        assert torch.allclose(a.cpu(), b, rtol=1e-5, atol=1e-2)
 
 
 def _pairs(rng, W, N, dev):
@@ -180,6 +220,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         K2.topi_moments_cuda(torch.zeros(8, 20, device=dev),
                              torch.zeros(8, dtype=torch.int32, device=dev),
                              torch.zeros(2, dtype=torch.int32, device=dev))
+    perm = torch.zeros(8, dtype=torch.int32, device=dev)
+    offs = torch.zeros(3, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        K2.segment_sum_cuda(torch.zeros(8, 13, device=dev).double(), perm, offs)
+    with pytest.raises(TypeError):
+        K2.segment_sum_cuda(torch.zeros(8, 13, device=dev), perm.long(), offs)
+    with pytest.raises(ValueError):
+        K2.segment_sum_cuda(torch.zeros(8, 13, device=dev), perm, offs.cpu())
+    with pytest.raises(ValueError):
+        K2.segment_sum_cuda(torch.zeros(8, 17, device=dev), perm, offs)
+    with pytest.raises(ValueError):
+        K2.segment_sum_cuda(torch.zeros(8, 13, device=dev), perm[:4], offs)
     pose4, packed = _pairs(np.random.default_rng(0), 2, 64, dev)
     one = torch.ones((), device=dev)
     with pytest.raises(TypeError):
@@ -218,7 +270,7 @@ def test_odometry_launches_each_kernel_once_per_frame(dev, switches):
     solves = 7 if switches == "on" else 0
     m = cfg.matcher
     assert build.LAUNCHES == {
-        "row_windows": 8, "segment_topk_moments": 8,
+        "row_windows": 8, "segment_topk_moments": 8, "segment_moments": 0,
         "ndt_linearize": solves * m.gnc_steps * m.lm_max_iterations,
         "ndt_robust_cost": solves * (2 + m.gnc_steps * (1 + m.lm_max_iterations)),
         "chol_solve": solves * m.gnc_steps * m.lm_max_iterations,
@@ -226,3 +278,67 @@ def test_odometry_launches_each_kernel_once_per_frame(dev, switches):
     b = slam.run_odometry(cfg, frames, device=dev)
     assert np.array_equal(a.odom_poses, b.odom_poses)
     assert np.all(np.isfinite(a.odom_poses))
+
+
+# the CPU tests' loop sequence and loop parameters (tests/test_torch_loops.py)
+LOOP_KW = {**{f"scan_context.{k}": v for k, v in dict(
+    num_ring=20, num_sector=60, max_radius=80.0, num_exclude_recent=20,
+    num_candidates=5, dist_threshold=0.7, odom_weight=0.05, odom_eps=4.0,
+    assumed_drift=0.05, intensity_factor=0.01).items()},
+    "local_fuser.csm_prealign_loops": True, "matcher.csm_window_linear": 12.0,
+    "matcher.csm_window_angular": 0.6, "matcher.csm_n_iter": 3}
+# optimized poses from the CPU's own free-running loop edges against the
+# card's: twice the reading on an H100 (2.25e-3 m, 1.09e-4 rad), which the
+# refined edges' one-step gap sets
+FREE_POSE_BAND = (4.5e-3, 2.2e-4)
+
+
+@pytest.mark.cuda
+def test_loop_closure_card_against_cpu(dev):
+    """Full SLAM on the card over the CPU tests' loop sequence (seed 7, 130
+    frames, 1.25 laps), then loop closure and the pose graph again on the
+    CPU from the card's odometry: identical candidate and edge tables;
+    refined edges and CS divergences within ``chip_smoke.py``'s band, and
+    the poses optimized from them within the band above; the pose graph of
+    the card's own loop edges, solved on the CPU, within 1e-3 m / 1e-4 rad
+    of the card's.  A second drive beside chip_smoke's; its readings are
+    printed (``-s``)."""
+    from chip_smoke import LOOP_CS_BAND, LOOP_EDGE_BAND
+    from randt_slam_torch.config import synthetic_config
+    from randt_slam_torch.graph import schur
+    from randt_slam_torch.io import synthetic
+    from randt_slam_torch.loops import detector
+    from randt_slam_torch.pipeline import slam
+
+    cfg = synthetic_config(**LOOP_KW)
+    seq = synthetic.generate(seed=7, n_frames=130, n_azimuths=256, n_bins=256,
+                             speed=4.0, dt=0.25, loop=True, n_walls=80)
+    frames = slam.frames_from_arrays(seq.intensity, seq.azimuths, seq.ranges,
+                                     seq.stamps, device=dev)
+    res = slam.run_slam(cfg, frames, device=dev)
+    odo, card = res.odometry, res.loops
+    assert card.n_accepted > 0
+
+    def pgo_on_cpu(loops):
+        opt, _ = schur.optimize_auto(slam.build_pose_graph(odo, loops, "cpu"),
+                                     cfg.global_fuser, node_submap=odo.node_submap,
+                                     node_is_root=odo.node_is_root)
+        return np.abs(opt.numpy() - res.node_pose_optimized)
+
+    cpu = detector.detect_loops(cfg, odo, frames, device="cpu")
+    for k in ("query_node", "query_match", "query_stage", "edge_begin", "edge_end"):
+        assert np.array_equal(getattr(cpu, k), getattr(card, k)), k
+    assert (cpu.n_sc_candidates, cpu.n_accepted) == (card.n_sc_candidates,
+                                                      card.n_accepted)
+    cs_rel = float(np.max(np.abs(cpu.cs_divergences / card.cs_divergences - 1)))
+    de = np.abs(cpu.edge_trans - card.edge_trans)
+    dp, dq = pgo_on_cpu(cpu), pgo_on_cpu(card)
+    print(f"loop sequence, {card.n_sc_candidates} candidates, {card.n_accepted} "
+          f"accepted: CPU against card CS within {cs_rel:.2e} relative, edges "
+          f"within {de[:, :2].max():.2e} m / {de[:, 2].max():.2e} rad, optimized "
+          f"poses within {dp[:, :2].max():.2e} m / {dp[:, 2].max():.2e} rad (from "
+          f"the card's edges {dq[:, :2].max():.2e} m / {dq[:, 2].max():.2e} rad)")
+    assert cs_rel <= LOOP_CS_BAND
+    assert de[:, :2].max() <= LOOP_EDGE_BAND[0] and de[:, 2].max() <= LOOP_EDGE_BAND[1]
+    assert dp[:, :2].max() <= FREE_POSE_BAND[0] and dp[:, 2].max() <= FREE_POSE_BAND[1]
+    assert dq[:, :2].max() <= 1e-3 and dq[:, 2].max() <= 1e-4

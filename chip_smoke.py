@@ -25,7 +25,11 @@ Phases (any failed check raises and the script exits non-zero):
    filtered points and cluster ids, and its entry point ``from_points``
    driven once with the counts at 0); its time (CUDA events), the plain
    version's, a one-call PyTorch yardstick where one exists and the least
-   time the card could take for the same work;
+   time the card could take for the same work; beside them the launch
+   floor (an empty launch timed the same way), K4's time for all the
+   frame's systems in one launch, whether K4 beats ``cholesky_ex`` +
+   ``cholesky_solve``, and K3b's and K4's times in their earlier
+   one-block designs (PERF.md);
 4. per odometry path, ``run_odometry`` over rendered frames of that
    geometry (80 with the switches on, 40 off): exact launch counts (K1 and K2 once per frame; per
    ``estimate_window`` call K3a and K4 gnc_steps x lm_max_iterations times
@@ -109,6 +113,11 @@ SWITCHES_ON = {"matcher.use_pallas_linearize": True,
 K3A_FLOPS_PER_PAIR = 200
 K3B_FLOPS_PER_PAIR = 140
 K3_REL = 1e-4   # K3a/K3b sums against plain, relative to their scale
+# the earlier designs of K3b (one block per slot) and K4 (one block per
+# system) at these shapes (PERF.md, NVIDIA H100 80GB HBM3 at 700 W),
+# printed beside this run's times
+K3B_ONE_BLOCK_US = 14.30
+K4_ONE_BLOCK_US = 79.58
 
 
 def render_frames(n_frames, seed=0, laps=None):
@@ -490,7 +499,8 @@ def check_k3(k3_sets, cfg, dev):
     print(f"K3b ndt_robust_cost: within {worst_b:.2e} of the sum's scale of plain, "
           f"r2max within 1e-5, two launches bitwise equal, a NaN pair passed on "
           f"as plain passes it; kernel "
-          f"{tb['ms'] * 1e3:.2f} us, plain {tb['plain_ms'] * 1e3:.2f} us, no "
+          f"{tb['ms'] * 1e3:.2f} us (one block per slot {K3B_ONE_BLOCK_US:.2f} us), plain "
+          f"{tb['plain_ms'] * 1e3:.2f} us, no "
           f"one-call library yardstick, bound {bb * 1e3:.4f} us ({byb}, "
           f"{nbytes_b} B)", flush=True)
     return (dict(max_abs_err=err_a, bound_ms=ba, bound_by=bya, **ta),
@@ -539,6 +549,7 @@ def check_k4(systems, dev):
              library_ms=device_ms(lambda: torch.linalg.solve_ex(A1, b1)))
     chol_lib = device_ms(lambda: torch.cholesky_solve(
         b1[:, None], torch.linalg.cholesky_ex(A1)[0]))
+    batch_ms = device_ms(lambda: K4.chol_solve_cuda(A, b))
     # the least it must move: the lower triangle of A (an SPD solve reads one
     # triangle), b read once, x written once
     nbytes = (P * (P + 1) // 2 + 2 * P) * 4
@@ -550,10 +561,15 @@ def check_k4(systems, dev):
           f"{float((e64 / bound).max()):.3f} of the bound of a float64 solve and "
           f"{float((ep / bound).max()):.3f} of plain; residual within "
           f"{res_share:.3f} of 4 P eps |A| |x|; batch, repeat and one by one "
-          f"bitwise equal; kernel {t['ms'] * 1e3:.2f} us, plain "
+          f"bitwise equal; kernel {t['ms'] * 1e3:.2f} us (one block per system "
+          f"{K4_ONE_BLOCK_US:.2f} us), all {A.shape[0]} systems in one launch "
+          f"{batch_ms * 1e3:.2f} us, plain "
           f"{t['plain_ms'] * 1e3:.2f} us, torch.linalg.solve_ex {t['library_ms'] * 1e3:.2f} "
           f"us, cholesky_ex + cholesky_solve {chol_lib * 1e3:.2f} us, bound "
           f"{bd * 1e3:.4f} us ({by}, {nbytes} B, {flops} flops)", flush=True)
+    print(f"K4 chol_solve {'beats' if t['ms'] < chol_lib else 'does not beat'} "
+          f"cholesky_ex + cholesky_solve in this run ({t['ms'] * 1e3:.2f} against "
+          f"{chol_lib * 1e3:.2f} us)", flush=True)
     return dict(max_abs_err=float((x - xp).abs().max()), bound_ms=bd, bound_by=by, **t)
 
 
@@ -562,10 +578,11 @@ def trace_rows(events):
     device rows sorted by device time as (us, count, name), device busy us,
     and the ``randt.*`` layer ranges as name -> (calls, host us, device us).
     A layer's device time is that of the kernels whose launching operator
-    started inside one of its ranges (on any host thread).  This pass takes
-    a second where the profiler's ``key_averages`` takes minutes over the
-    ~10^5 launches of a window."""
-    kernels, ranges, op_start, launched = {}, {}, {}, []
+    started inside one of its ranges (on any host thread); a kernel launched
+    outside any operator (the port's own, through ctypes) counts by the start
+    of its launch call.  This pass takes a second where the profiler's
+    ``key_averages`` takes minutes over the ~10^5 launches of a window."""
+    kernels, ranges, op_start, api_start, launched = {}, {}, {}, {}, []
     for e in events:
         name, start, dur = e.name(), e.start_ns(), e.duration_ns()
         if str(e.device_type()).endswith("CUDA"):
@@ -574,18 +591,22 @@ def trace_rows(events):
             row = kernels.setdefault(name, [0, 0])
             row[0] += dur
             row[1] += 1
-            launched.append((e.linked_correlation_id(), dur))
+            launched.append((e.linked_correlation_id(), e.correlation_id(), dur))
         else:
             if name.startswith("randt."):
                 ranges.setdefault(name, []).append((start, start + dur))
             # operators and ranges, which kernels link to; the CUDA API
-            # calls (cudaLaunchKernel, ...) number their own correlation
-            if not name.startswith("cu") and e.correlation_id() > 0:
+            # calls (cudaLaunchKernel, ...) number their own correlation,
+            # which their kernels share
+            if name.startswith("cu"):
+                api_start[e.correlation_id()] = start
+            elif e.correlation_id() > 0:
                 op_start[e.correlation_id()] = start
     rows = sorted(((ns / 1e3, n, name) for name, (ns, n) in kernels.items()),
                   reverse=True)
     total = sum(r[0] for r in rows)
-    linked = [(op_start[c], d) for c, d in launched if c in op_start]
+    linked = [(op_start[c] if c in op_start else api_start[a], d)
+              for c, a, d in launched if c in op_start or a in api_start]
     k_at = np.array([t for t, _ in linked], dtype=np.int64)
     k_dur = np.array([d for _, d in linked], dtype=np.float64)
     layers = {}
@@ -1094,6 +1115,10 @@ def main() -> int:
                 cfg.capacity.max_scan_cells)]
     k1_sets.append(k1_frame)
     k2_sets.append(k2_frame)
+    # what one launch costs when timed as the kernels are: an empty kernel
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0))
+    print(f"launch floor: an empty launch (torch.cuda._sleep(0)) timed as the "
+          f"kernels are, {floor_ms * 1e3:.2f} us", flush=True)
     k1 = check_k1(k1_sets, dev)
     k2 = check_k2(k2_sets, dev)
 

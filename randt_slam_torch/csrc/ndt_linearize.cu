@@ -20,29 +20,48 @@
 // ndt_scale are read from device memory (they are device tensors inside the
 // LM loop; passing them by value would make the host wait on the device).
 //
-// What bounds it on an H100: reading the valid weight of every pair and
-// the other 18 floats of each valid pair once (an invalid pair adds
-// nothing; at most W * N * 76 B = 0.47 MB at the Oxford shape W = 3,
-// N = 2048, ~0.14 us at 3.35 TB/s); about 200 float operations per valid
-// pair are ~0.02 us at 67 TFLOP/s.  At this size one launch costs more than
-// either: the kernel
-// exists to replace the ~1,000 small launches of an autograd linearization.
-// The TPU kernel unrolled the W slots over full-width vector ops in one
-// program; here each slot is one block and a thread takes the pairs
-// n = t, t + 256, ..., which keeps the loads of each channel coalesced.
+// What bounds it on an H100: latency, for both.  The bytes are reading
+// the valid weight of every pair and the other 18 floats of each valid pair
+// once (an invalid pair adds nothing; at most W * N * 76 B = 0.47 MB at the
+// Oxford shape W = 3, N = 2048, ~0.14 us at 3.35 TB/s); about 200 float
+// operations per valid pair are ~0.02 us at 67 TFLOP/s.  At this size one
+// launch costs more than either: the kernels exist to replace the ~1,000
+// small launches of an autograd linearization.  The TPU kernel unrolled the
+// W slots over full-width vector ops in one program.
 //
-// Determinism: every thread sums its pairs in a fixed order; a fixed-order
-// shared-memory tree then reduces the per-thread sums.  No float atomics, so
-// two launches give bitwise-identical output.  Built without fast math:
-// sqrtf, powf, log1pf and division are the IEEE-accurate versions.
+// K3a: each slot is one block; a thread takes the pairs n = t, t + 256, ...
+// (coalesced per channel), so each thread waits one memory round trip per
+// pair it walks, and a fixed-order shared-memory tree reduces the ten sums.
+//
+// K3b: each slot is one thread-block cluster of 8 blocks x 256 threads (a
+// Hopper feature), so at N = 2048 a thread takes one pair and every load of
+// the slot is in flight at once (any N: the thread of rank k strides
+// n = k * 256 + t, + 2048, ...).  Each warp folds its threads' cost and
+// maximum by a fixed shuffle tree, warp 0's thread 0 folds the block's
+// warps in order into its own shared memory, and after a cluster barrier
+// block rank 0 reads the 8 block partials through distributed shared memory
+// in rank order and writes the slot's outputs.  One launch, no device-memory
+// scratch, no counter; a card that refuses the cluster launch makes the
+// launcher return its error.
+//
+// Determinism: every sum is taken in a fixed order (per thread, then the
+// fixed trees), with no float atomics, so two launches give bitwise-identical
+// output.  Built without fast math: sqrtf, powf, log1pf and division are the
+// IEEE-accurate versions.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kClusterBlocks = 8;  // the portable cluster size
+constexpr int kSlotThreads = kClusterBlocks * kThreads;  // one pair each at N = 2048
 constexpr int kTerms = 10;  // H00 H01 H02 H11 H12 H22 g0 g1 g2 rho
 
 // Barron loss with the GNC control parameter folded into the scale
@@ -248,7 +267,9 @@ linearize_kernel(const float* __restrict__ pose4, const float* __restrict__ mu_p
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K3b: one thread-block cluster of kClusterBlocks blocks per slot; the
+// block of rank k takes the pairs n = k * kThreads + t, + kSlotThreads, ...
+__global__ void __cluster_dims__(kClusterBlocks, 1, 1) __launch_bounds__(kThreads)
 robust_cost_kernel(const float* __restrict__ pose4, const float* __restrict__ mu_p,
                    const float* __restrict__ mm, const float* __restrict__ mc,
                    const float* __restrict__ am, const float* __restrict__ ac,
@@ -256,10 +277,14 @@ robust_cost_kernel(const float* __restrict__ pose4, const float* __restrict__ mu
                    float* __restrict__ r2max_out, int N, float scale, float alpha,
                    float eps, int branch, float factor, float exponent,
                    float exponent_m1) {
-  __shared__ float red[1][kThreads];
-  __shared__ float top[kThreads];
-  const int w = blockIdx.x;
+  __shared__ float warp_rho[kWarps];
+  __shared__ float warp_top[kWarps];
+  __shared__ float block_part[2];  // this block's rho sum and r2 max
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int w = blockIdx.x / kClusterBlocks;
   const int t = threadIdx.x;
+  const int lane = t % 32;
   const float tx = pose4[4 * w], ty = pose4[4 * w + 1];
   const float c = pose4[4 * w + 2], s = pose4[4 * w + 3];
   const Barron loss(*mu_p, scale, alpha, branch, factor, exponent, exponent_m1);
@@ -267,9 +292,11 @@ robust_cost_kernel(const float* __restrict__ pose4, const float* __restrict__ mu
   const size_t o6 = static_cast<size_t>(w) * 6 * N;
   const float* vw = valid + static_cast<size_t>(w) * N;
 
+  // every pair is read, valid or not: its cost is multiplied by the valid
+  // weight, so a NaN in an invalid pair reaches the sum as in plain
   float rho = 0.0f;
   float r2max = 0.0f;
-  for (int n = t; n < N; n += kThreads) {
+  for (int n = rank * kThreads + t; n < N; n += kSlotThreads) {
     const float r2 =
         pair_terms(c, s, tx, ty, mm + o3, mc + o6, am + o3, ac + o6, N, n).r2;
     const float w_valid = vw[n];
@@ -279,20 +306,43 @@ robust_cost_kernel(const float* __restrict__ pose4, const float* __restrict__ mu
     r2max = nan_max(r2max, w_valid > 0.0f ? sq : 0.0f);
   }
 
-  red[0][t] = rho;
-  top[t] = r2max;
+  // warp, then block: fixed-order trees
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    rho += __shfl_down_sync(0xffffffffu, rho, off);
+    r2max = nan_max(r2max, __shfl_down_sync(0xffffffffu, r2max, off));
+  }
+  if (lane == 0) {
+    warp_rho[t / 32] = rho;
+    warp_top[t / 32] = r2max;
+  }
   __syncthreads();
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-    if (t < stride) {
-      red[0][t] += red[0][t + stride];
-      top[t] = nan_max(top[t], top[t + stride]);
-    }
-    __syncthreads();
-  }
   if (t == 0) {
-    rho_out[w] = red[0][0];
-    r2max_out[w] = top[0];
+    float sum = warp_rho[0], top = warp_top[0];
+#pragma unroll
+    for (int k = 1; k < kWarps; ++k) {
+      sum += warp_rho[k];
+      top = nan_max(top, warp_top[k]);
+    }
+    block_part[0] = sum;
+    block_part[1] = top;
   }
+  // the cluster: rank 0 reads the blocks' partials through distributed
+  // shared memory, in rank order; the second sync keeps every block's
+  // shared memory alive until then
+  cluster.sync();
+  if (rank == 0 && t == 0) {
+    float sum = block_part[0], top = block_part[1];
+#pragma unroll
+    for (int k = 1; k < kClusterBlocks; ++k) {
+      const float* part = cluster.map_shared_rank(&block_part[0], k);
+      sum += part[0];
+      top = nan_max(top, part[1]);
+    }
+    rho_out[w] = sum;
+    r2max_out[w] = top;
+  }
+  cluster.sync();
 }
 
 }  // namespace
@@ -328,7 +378,9 @@ extern "C" int ndt_robust_cost_f32(const float* pose4, const float* mu,
                                    void* stream) {
   if (W < 0 || N < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (W > 0) {
-    robust_cost_kernel<<<W, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    // clusters of kClusterBlocks consecutive blocks, one per slot
+    robust_cost_kernel<<<W * kClusterBlocks, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
         pose4, mu, m_mean, m_cov, a_mean, a_cov, valid, rho, r2max, N, scale,
         alpha, eps, branch, factor, exponent, exponent_m1);
   }

@@ -6,10 +6,13 @@ unblocked right-looking Cholesky, then forward and back substitution.  The
 system must be SPD (Gauss-Newton H after Jacobi scaling, positive damping,
 identity rows on frozen parameters; ``registration/solver.py``).
 
-A leading batch dimension is allowed: A (B, P, P), b (B, P), one system per
-kernel block.  On a CUDA tensor :func:`chol_solve` launches the kernel; on a
-CPU tensor it runs :func:`chol_solve_plain`, the same steps as a P-step loop
-of tensor ops.
+A leading batch dimension is allowed: A (B, P, P), b (B, P), one warp per
+system, its lower triangle and b in the warp's shared memory.  On a CUDA
+tensor :func:`chol_solve` launches the kernel; on a CPU tensor it runs
+:func:`chol_solve_plain`, the same factorization as a P-step loop of tensor
+ops (the kernel sums each entry's products in the same order, but
+multiplies by the pivots' rsqrt where the plain version divides by L_jj,
+and orders the substitutions' sums by column).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 
 from . import build
 
-MAX_P = 64  # the kernel keeps the (P, P) matrix in 16 KB of shared memory
+MAX_P = 64  # each lane of the kernel's warp owns at most 3 of the P + 1 rows
 
 
 def chol_solve_plain(A, b):

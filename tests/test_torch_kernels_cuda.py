@@ -12,15 +12,21 @@ PyTorch is installed:
   its terms of the plain version at (P, S) = (5000, 700) and (26000, 3249),
   dropped ids included; two launches bitwise equal; one launch per
   ``cells.from_points`` call.
-* K3a ``ndt_linearize`` and K3b ``ndt_robust_cost``: within 1e-4 of each
-  output's scale (the sum of the absolute values of its per-pair terms) of
-  the plain versions (a few ulps of each term: the kernel contracts
-  multiply-adds and its powf is not torch.pow's); the maximum within 1e-5
-  of itself; two launches bitwise equal; a NaN pair passes on to its slot's
-  cost and maximum, as in the plain version.
-* K4 ``chol_solve``: within 4 P eps kappa |x| of the plain version and of a
-  float64 solve, with the residual |A x - b| within 4 P eps |A| |x|, on
-  damped Jacobi-scaled systems with identity rows, one system and a batch.
+* K3a ``ndt_linearize`` and K3b ``ndt_robust_cost``, W in {1, 3, 4} slots
+  of N in {1, 255, 256, 257, 2048, 2049, 4096} pairs (one to two pairs per
+  thread of K3b's 2048-thread cluster, and ragged ends): within 1e-4 of
+  each output's scale (the sum of the absolute values of its per-pair
+  terms) of the plain versions (a few ulps of each term: the kernel
+  contracts multiply-adds and its powf is not torch.pow's); the maximum
+  within 1e-5 of itself; two launches bitwise equal; a NaN in a valid pair
+  passes on to its slot's cost and maximum, a NaN in an invalid pair to its
+  cost only, and a slot without a valid pair costs exactly 0, as in the
+  plain version.
+* K4 ``chol_solve``, P in {1, 9, 18, 31, 32, 36, 37, 63, 64} (each lane
+  holds one, two or three rows of A and b) and B in {1, 3, 50} systems: within 4 P eps kappa |x|
+  of the plain version and of a float64 solve, with the residual |A x - b|
+  within 4 P eps |A| |x|, on damped Jacobi-scaled systems with identity
+  rows; batch, repeat and one-by-one launches bitwise equal.
 * The wrappers refuse inputs the kernels do not take.
 * A short odometry run launches K1 and K2 once per frame; with the switches
   on, each ``estimate_window`` call launches K3a and K4 gnc_steps x
@@ -132,9 +138,11 @@ def _pairs(rng, W, N, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("alpha", [-2.0, 0.0, 2.0])
-def test_ndt_linearize_kernels_match_plain(dev, alpha):
+@pytest.mark.parametrize("W", [1, 3, 4])
+@pytest.mark.parametrize("N", [1, 255, 256, 257, 2048, 2049, 4096])
+def test_ndt_linearize_kernels_match_plain(dev, alpha, W, N):
     rng = np.random.default_rng(4)
-    pose4, packed = _pairs(rng, 3, 2048, dev)
+    pose4, packed = _pairs(rng, W, N, dev)
     mu = torch.tensor(4.0, device=dev)
     ns = torch.tensor(0.37, device=dev)
     H, g, rho = K3.linearize_cuda(pose4, mu, ns, packed, 1.0, alpha)
@@ -159,7 +167,7 @@ def _system(rng, P, lam):
     J = rng.normal(0, 1, (3 * P, P)) @ (Q * np.logspace(-3, 0, P)) @ Q.T
     H = J.T @ J
     frozen = np.zeros(P, bool)
-    frozen[[0, 1, 2, 8]] = True
+    frozen[[k for k in (0, 1, 2, 8) if k < P]] = True
     frozen[6::9] = frozen[7::9] = True
     H = H * ~frozen[:, None] * ~frozen[None, :]
     d = np.where(frozen, 0.0, 1.0 / np.sqrt(np.maximum(np.diag(H), 1e-10)))
@@ -168,20 +176,23 @@ def _system(rng, P, lam):
 
 
 @pytest.mark.cuda
-def test_chol_solve_kernel_matches_plain_and_float64(dev):
+@pytest.mark.parametrize("P", [1, 9, 18, 31, 32, 36, 37, 63, 64])
+@pytest.mark.parametrize("B", [1, 3, 50])
+def test_chol_solve_kernel_matches_plain_and_float64(dev, P, B):
     rng = np.random.default_rng(9)
-    P = 36
-    systems = [_system(rng, P, lam) for lam in (1e-4, 1e-2, 1.0, 1e2)]
+    lams = (1e-4, 1e-2, 1.0, 1e2)
+    systems = [_system(rng, P, lams[i % len(lams)]) for i in range(B)]
     A = torch.tensor(np.stack([s[0] for s in systems]), dtype=torch.float32, device=dev)
     b = torch.tensor(np.stack([s[1] for s in systems]), dtype=torch.float32, device=dev)
     x = K4.chol_solve_cuda(A, b)
     x2 = K4.chol_solve_cuda(A, b)
-    x1 = K4.chol_solve_cuda(A[0].contiguous(), b[0].contiguous())
+    one = torch.stack([K4.chol_solve_cuda(A[i].contiguous(), b[i].contiguous())
+                       for i in range(B)])
     xp = K4.chol_solve_plain(A, b)
     x64 = torch.linalg.solve(A.double(), b.double())
     kappa = torch.linalg.cond(A.double())
     torch.cuda.synchronize()
-    assert torch.equal(x, x2) and torch.equal(x1, x[0])
+    assert torch.equal(x, x2) and torch.equal(one, x)
     bound = (4 * P * float(np.finfo(np.float32).eps) * kappa
              * x64.abs().amax(-1))[:, None]
     assert bool(((x.double() - x64).abs() <= bound).all())
@@ -194,17 +205,32 @@ def test_chol_solve_kernel_matches_plain_and_float64(dev):
 
 
 @pytest.mark.cuda
-def test_robust_cost_kernel_passes_nan_on(dev):
+@pytest.mark.parametrize("case", ["valid_nan", "invalid_nan", "all_invalid"])
+def test_robust_cost_kernel_passes_nan_on(dev, case):
+    """Slot 1: a NaN in a valid pair makes its cost and maximum NaN; a NaN in
+    an invalid pair makes its cost NaN (the cost is multiplied by the valid
+    weight) and leaves its maximum finite; a slot without a valid pair
+    costs exactly 0, with maximum 0.  As in the plain version."""
     rng = np.random.default_rng(6)
-    pose4, packed = _pairs(rng, 3, 512, dev)
-    first = int(torch.nonzero(packed[4][1, 0] > 0)[0])
-    packed[2][1, 0, first] = float("nan")
+    pose4, packed = _pairs(rng, 3, 2048, dev)
     mu = torch.tensor(4.0, device=dev)
+    if case == "all_invalid":
+        packed[4][1] = 0.0
+    else:
+        pick = packed[4][1, 0] > 0 if case == "valid_nan" else packed[4][1, 0] == 0
+        packed[2][1, 0, int(torch.nonzero(pick)[0])] = float("nan")
     c, m = K3.robust_cost_cuda(pose4, mu, packed, 1.0, -2.0)
+    c2, m2 = K3.robust_cost_cuda(pose4, mu, packed, 1.0, -2.0)
     cp, mp = K3.robust_cost_plain(pose4, mu, packed, 1.0, -2.0)
     torch.cuda.synchronize()
-    assert bool(m[1].isnan()) and bool(c[1].isnan())
+    for a, b in ((c, c2), (m, m2)):
+        assert torch.allclose(a, b, rtol=0.0, atol=0.0, equal_nan=True)
     assert torch.equal(m.isnan(), mp.isnan()) and torch.equal(c.isnan(), cp.isnan())
+    if case == "all_invalid":
+        assert float(c[1]) == 0.0 and float(m[1]) == 0.0
+    else:
+        assert bool(c[1].isnan())
+        assert bool(m[1].isnan()) == (case == "valid_nan")
 
 
 @pytest.mark.cuda

@@ -28,8 +28,9 @@ Phases (any failed check raises and the script exits non-zero):
    time the card could take for the same work; beside them the launch
    floor (an empty launch timed the same way), K4's time for all the
    frame's systems in one launch, whether K4 beats ``cholesky_ex`` +
-   ``cholesky_solve``, and K3b's and K4's times in their earlier
-   one-block designs (PERF.md);
+   ``cholesky_solve``, K2's whole call (counts, stable sort and kernel),
+   and K2's, K3a's, K3b's and K4's times in their earlier designs
+   (PERF.md);
 4. per odometry path, ``run_odometry`` over rendered frames of that
    geometry (80 with the switches on, 40 off): exact launch counts (K1 and K2 once per frame; per
    ``estimate_window`` call K3a and K4 gnc_steps x lm_max_iterations times
@@ -113,11 +114,13 @@ SWITCHES_ON = {"matcher.use_pallas_linearize": True,
 K3A_FLOPS_PER_PAIR = 200
 K3B_FLOPS_PER_PAIR = 140
 K3_REL = 1e-4   # K3a/K3b sums against plain, relative to their scale
-# the earlier designs of K3b (one block per slot) and K4 (one block per
-# system) at these shapes (PERF.md, NVIDIA H100 80GB HBM3 at 700 W),
-# printed beside this run's times
+# the earlier designs of K3a and K3b (one block per slot), K4 (one block
+# per system) and K2 (one block per kept segment) at these shapes (PERF.md,
+# NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's times
+K3A_ONE_BLOCK_US = 15.20
 K3B_ONE_BLOCK_US = 14.30
 K4_ONE_BLOCK_US = 79.58
+K2_BLOCK_PER_SEGMENT_US = 27.49
 
 
 def render_frames(n_frames, seed=0, laps=None):
@@ -272,6 +275,7 @@ def check_k2(k2_sets, dev):
         plain_ms=device_ms(lambda: K2.topi_moments_plain(values, ids, topi, num)),
         library_ms=device_ms(lambda: torch.zeros(k + 1, CH, device=dev).index_add_(
             0, rank_of_point, values)),
+        whole_call_ms=device_ms(lambda: K2.segment_topk_moments(values, ids, num, k)),
     )
     # the least the function must move: every id, the value rows of the
     # points in the kept segments, the k segment ids, the (k, CH) output;
@@ -281,9 +285,11 @@ def check_k2(k2_sets, dev):
     b, by = bound_ms(nbytes, kept_rows * CH)
     print(f"K2 segment_topk_moments: topi equal to the CPU path's, moments within "
           f"1e-5 of their scale, two launches bitwise equal, on {len(k2_sets)} "
-          f"inputs; kernel {t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
-          f"index_add_ into a rank map (approximate yardstick) "
-          f"{t['library_ms'] * 1e3:.2f} us, bound {b * 1e3:.3f} us ({by}, "
+          f"inputs; kernel {t['ms'] * 1e3:.2f} us (one block per kept segment "
+          f"{K2_BLOCK_PER_SEGMENT_US:.2f} us), the whole call with its plain counts "
+          f"and stable sort {t['whole_call_ms'] * 1e3:.2f} us, plain "
+          f"{t['plain_ms'] * 1e3:.2f} us, index_add_ into a rank map (approximate "
+          f"yardstick) {t['library_ms'] * 1e3:.2f} us, bound {b * 1e3:.3f} us ({by}, "
           f"{nbytes} B, {kept_rows} rows in the kept segments)", flush=True)
     return dict(max_abs_err=err, bound_ms=b, bound_by=by, **t)
 
@@ -404,7 +410,7 @@ def check_k3(k3_sets, cfg, dev):
     """K3a/K3b against their plain versions: every sum within K3_REL of its
     scale (the sum of the absolute values of its per-pair terms), the max
     within 1e-5 of itself, two launches bitwise equal, a NaN pair passed on
-    to its slot's cost and max as the plain version does."""
+    to its slot's sums, cost and max as the plain version does."""
     import torch
 
     from randt_slam_torch.ops import ndt_linearize as NL
@@ -450,6 +456,13 @@ def check_k3(k3_sets, cfg, dev):
             and torch.equal(m.isnan(), mp.isnan())):
         raise AssertionError(f"K3b: a NaN pair gives {c.tolist()}, {m.tolist()}; "
                              f"plain {cp.tolist()}, {mp.tolist()}")
+    # and K3a's H, g and rho of that slot
+    out = NL.linearize_cuda(pose4, mu, ns, nan_packed, sc, al)
+    plain = NL.linearize_plain(pose4, mu, ns, nan_packed, sc, al)
+    if not all(bool(a[1].isnan().all()) and torch.equal(a.isnan(), p.isnan())
+               for a, p in zip(out, plain)):
+        raise AssertionError(f"K3a: a NaN pair gives {[a.tolist() for a in out]}; "
+                             f"plain {[p.tolist() for p in plain]}")
 
     pose4, mu, ns, packed = k3_sets[-1]
     W, N = packed[0].shape[0], packed[0].shape[-1]
@@ -489,8 +502,9 @@ def check_k3(k3_sets, cfg, dev):
     ba, bya = bound_ms(nbytes_a, n_valid * K3A_FLOPS_PER_PAIR)
     bb, byb = bound_ms(nbytes_b, n_valid * K3B_FLOPS_PER_PAIR)
     print(f"K3a ndt_linearize: within {worst_a:.2e} of each sum's scale of plain "
-          f"(limit {K3_REL}), two launches bitwise equal, on {len(k3_sets)} inputs "
-          f"(W={W}, N={N}); kernel {ta['ms'] * 1e3:.2f} us, plain "
+          f"(limit {K3_REL}), two launches bitwise equal, a NaN pair passed on as "
+          f"plain passes it, on {len(k3_sets)} inputs (W={W}, N={N}); kernel "
+          f"{ta['ms'] * 1e3:.2f} us (one block per slot {K3A_ONE_BLOCK_US:.2f} us), plain "
           f"{ta['plain_ms'] * 1e3:.2f} us, no one-call library yardstick (for "
           f"information, the switches-off linearization of the same pairs, "
           f"autograd Jacobian and einsums: {autograd_ms * 1e3:.2f} us), bound "

@@ -29,20 +29,18 @@
 // small launches of an autograd linearization.  The TPU kernel unrolled the
 // W slots over full-width vector ops in one program.
 //
-// K3a: each slot is one block; a thread takes the pairs n = t, t + 256, ...
-// (coalesced per channel), so each thread waits one memory round trip per
-// pair it walks, and a fixed-order shared-memory tree reduces the ten sums.
-//
-// K3b: each slot is one thread-block cluster of 8 blocks x 256 threads (a
-// Hopper feature), so at N = 2048 a thread takes one pair and every load of
-// the slot is in flight at once (any N: the thread of rank k strides
-// n = k * 256 + t, + 2048, ...).  Each warp folds its threads' cost and
-// maximum by a fixed shuffle tree, warp 0's thread 0 folds the block's
-// warps in order into its own shared memory, and after a cluster barrier
-// block rank 0 reads the 8 block partials through distributed shared memory
-// in rank order and writes the slot's outputs.  One launch, no device-memory
-// scratch, no counter; a card that refuses the cluster launch makes the
-// launcher return its error.
+// Both kernels: each slot is one thread-block cluster of 8 blocks x 256
+// threads (a Hopper feature), so at N = 2048 a thread takes one pair and
+// every load of the slot is in flight at once (any N: the thread of rank k
+// strides n = k * 256 + t, + 2048, ...).  Each warp folds its threads' sums
+// by fixed shuffle trees: K3b's cost and maximum one tree each, K3a's ten
+// sums by the transposing fold of warp_fold.cuh (12 shuffles, not 50).
+// Each block folds its warps in order into its own shared memory, and after
+// a cluster barrier block rank 0 reads the 8 block partials through
+// distributed shared memory in rank order and writes the slot's outputs; a
+// second barrier keeps every block's shared memory alive until then.  One
+// launch, no device-memory scratch, no counter; a card that refuses the
+// cluster launch makes the launcher return its error.
 //
 // Determinism: every sum is taken in a fixed order (per thread, then the
 // fixed trees), with no float atomics, so two launches give bitwise-identical
@@ -53,6 +51,8 @@
 #include <cuda_runtime.h>
 
 #include <cfloat>
+
+#include "warp_fold.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -186,20 +186,8 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
-// Fixed-order tree over the block: red[k][0] ends up holding the sum.
-template <int K>
-__device__ __forceinline__ void tree_sum(float (*red)[kThreads], int t) {
-  __syncthreads();
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-    if (t < stride) {
-#pragma unroll
-      for (int k = 0; k < K; ++k) red[k][t] += red[k][t + stride];
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
+// K3a: one thread-block cluster of kClusterBlocks blocks per slot, as K3b
+__global__ void __cluster_dims__(kClusterBlocks, 1, 1) __launch_bounds__(kThreads)
 linearize_kernel(const float* __restrict__ pose4, const float* __restrict__ mu_p,
                  const float* __restrict__ ndt_scale_p,
                  const float* __restrict__ mm, const float* __restrict__ mc,
@@ -208,9 +196,13 @@ linearize_kernel(const float* __restrict__ pose4, const float* __restrict__ mu_p
                  float* __restrict__ g, float* __restrict__ rho_out, int N,
                  float scale, float alpha, float eps, int branch, float factor,
                  float exponent, float exponent_m1) {
-  __shared__ float red[kTerms][kThreads];
-  const int w = blockIdx.x;
+  __shared__ float warp_part[kWarps][kTerms];
+  __shared__ float block_part[kTerms];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int w = blockIdx.x / kClusterBlocks;
   const int t = threadIdx.x;
+  const int lane = t % 32;
   const float tx = pose4[4 * w], ty = pose4[4 * w + 1];
   const float c = pose4[4 * w + 2], s = pose4[4 * w + 3];
   const float ndt_scale = *ndt_scale_p;
@@ -223,7 +215,9 @@ linearize_kernel(const float* __restrict__ pose4, const float* __restrict__ mu_p
 #pragma unroll
   for (int k = 0; k < kTerms; ++k) acc[k] = 0.0f;
 
-  for (int n = t; n < N; n += kThreads) {
+  // every pair is read, valid or not: its terms are multiplied by the valid
+  // weight, so a NaN in an invalid pair reaches the sums as in plain
+  for (int n = rank * kThreads + t; n < N; n += kSlotThreads) {
     const Pair p = pair_terms(c, s, tx, ty, mm + o3, mc + o6, am + o3, ac + o6, N, n);
     const float w_valid = vw[n];
     const float r = sqrtf(clamp_eps(p.r2, eps));
@@ -252,19 +246,41 @@ linearize_kernel(const float* __restrict__ pose4, const float* __restrict__ mu_p
     acc[9] += loss.rho(sq) * w_valid;
   }
 
+  // warp: the transposing fold leaves lane pairs holding one term each
+  float sum[fold_width(kTerms, 16)];
+  int term, held;
+  warp_fold<kTerms, 16>(acc, lane, 0, kTerms, sum, term, held);
+  if (held > 0) warp_part[t / 32][term] = sum[0];
+  __syncthreads();
+  // block: its warps in order
+  if (t < kTerms) {
+    float tot = warp_part[0][t];
 #pragma unroll
-  for (int k = 0; k < kTerms; ++k) red[k][t] = acc[k];
-  tree_sum<kTerms>(red, t);
-  if (t == 0) {
-    float* Hw = H + 9 * w;
-    Hw[0] = red[0][0]; Hw[1] = red[1][0]; Hw[2] = red[2][0];
-    Hw[3] = red[1][0]; Hw[4] = red[3][0]; Hw[5] = red[4][0];
-    Hw[6] = red[2][0]; Hw[7] = red[4][0]; Hw[8] = red[5][0];
-    g[3 * w] = red[6][0];
-    g[3 * w + 1] = red[7][0];
-    g[3 * w + 2] = red[8][0];
-    rho_out[w] = red[9][0];
+    for (int k = 1; k < kWarps; ++k) tot += warp_part[k][t];
+    block_part[t] = tot;
   }
+  // the cluster: rank 0 reads the blocks' partials through distributed
+  // shared memory, in rank order; the second sync keeps every block's
+  // shared memory alive until then
+  cluster.sync();
+  if (rank == 0 && t < kTerms) {
+    float tot = block_part[t];
+#pragma unroll
+    for (int k = 1; k < kClusterBlocks; ++k) {
+      tot += cluster.map_shared_rank(&block_part[0], k)[t];
+    }
+    if (t < 6) {  // H00 H01 H02 H11 H12 H22, H filled symmetrically
+      const int i = t < 3 ? 0 : (t < 5 ? 1 : 2);
+      const int j = t < 3 ? t : (t < 5 ? t - 2 : 2);
+      H[9 * w + 3 * i + j] = tot;
+      H[9 * w + 3 * j + i] = tot;
+    } else if (t < 9) {
+      g[3 * w + t - 6] = tot;
+    } else {
+      rho_out[w] = tot;
+    }
+  }
+  cluster.sync();
 }
 
 // K3b: one thread-block cluster of kClusterBlocks blocks per slot; the
@@ -360,7 +376,9 @@ extern "C" int ndt_linearize_f32(const float* pose4, const float* mu,
                                  float exponent_m1, void* stream) {
   if (W < 0 || N < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (W > 0) {
-    linearize_kernel<<<W, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    // clusters of kClusterBlocks consecutive blocks, one per slot
+    linearize_kernel<<<W * kClusterBlocks, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
         pose4, mu, ndt_scale, m_mean, m_cov, a_mean, a_cov, valid, H, g, rho, N,
         scale, alpha, eps, branch, factor, exponent, exponent_m1);
   }

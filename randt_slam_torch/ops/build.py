@@ -1,10 +1,11 @@
 """Build the CUDA kernels of ``csrc/`` with ``nvcc`` and bind them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a plain
-C interface, ``_build/lib<name>-<hash>.so`` (the hash covers the source and the
-flags, so an edited source rebuilds).  The build happens at first use; the
-sources are compiled in parallel, one ``nvcc`` process per file.  There is no
-fallback: a missing ``nvcc`` or a failed compile raises.
+C interface, ``_build/lib<name>-<hash>.so`` (the hash covers the source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source rebuilds).
+The build happens at first use; the sources are compiled in parallel, one
+``nvcc`` process per file.  There is no fallback: a missing ``nvcc`` or a
+failed compile raises.
 
 ``LAUNCHES`` counts the launches of each kernel; every wrapper adds one where
 it launches its kernel and nowhere else.
@@ -50,7 +51,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers enter every source's hash
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                             *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

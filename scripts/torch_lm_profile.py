@@ -7,9 +7,10 @@ process, render 12 Oxford-geometry frames with ``chip_smoke.render_frames``,
 run the switches-on odometry (``use_pallas_linearize``, ``use_pallas_chol``)
 once over 4 frames to build and warm up, then profile its first two frames
 (one solved) twice with ``chip_smoke.profile_window`` and print, per
-profile: the device busy time of the window, the ``randt.lm_solve`` layer's
-host and device time, and the device time and launch count of the
-hand-written LM-loop kernels (K3a, K3b, K4) by name.
+profile: the device busy time of the window, the ``randt.lm_solve`` and
+``randt.scan_ndt`` layers' host and device time, and the device time and
+launch count of the hand-written LM-loop kernels (K3a, K3b, K4) and of the
+scan NDT's K2 by name.
 
 Each tree runs its own ``randt_slam_torch`` under this checkout's
 ``chip_smoke`` (one instrument for all), so two commits compare in one call
@@ -27,7 +28,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_RENDER = 12
-KERNELS = ("chol_solve", "robust_cost", "linearize_kernel")
+KERNELS = ("chol_solve", "robust_cost", "linearize_kernel", "topi_moments")
 
 
 def profile_tree(tree: str) -> None:
@@ -51,12 +52,14 @@ def profile_tree(tree: str) -> None:
         _, wall, rows, total, layers = CS.profile_window(
             lambda: slam.run_odometry(cfg, first_two, device="cuda"))
         calls, host_us, dev_us = layers["randt.lm_solve"]
+        _, scan_host_us, scan_dev_us = layers["randt.scan_ndt"]
         kernels = {name[:name.rfind("(")].removeprefix("void "): (round(us, 1), n)
                    for us, n, name in rows if any(k in name for k in KERNELS)}
         print(f"{tree} profile {rep}: wall {wall * 1e3:.1f} ms, device busy "
               f"{total / 1e3:.3f} ms; randt.lm_solve (one solved frame) host "
-              f"{host_us / 1e3:.2f} ms, device {dev_us / 1e3:.3f} ms; LM-loop "
-              f"kernels (us, launches) {kernels}", flush=True)
+              f"{host_us / 1e3:.2f} ms, device {dev_us / 1e3:.3f} ms; randt.scan_ndt "
+              f"(two frames) host {scan_host_us / 1e3:.2f} ms, device "
+              f"{scan_dev_us:.1f} us; kernels (us, launches) {kernels}", flush=True)
 
 
 def main() -> int:

@@ -6,22 +6,27 @@ PyTorch is installed:
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
 * K1 ``row_windows``: bitwise equal to the plain version (a gather).
-* K2 ``segment_topk_moments``: the same ``topi``; moments within 1e-5 of the
-  sum of the absolute values of their terms; two launches bitwise equal.
+* K2 ``segment_topk_moments``, (P, S, k, CH) in {(26000, 3249, 512, 13),
+  (5000, 700, 255, 13), (5000, 700, 3, 1), (4000, 900, 513, 16)}, every id
+  -1, and kept segments without points: the same ``topi`` as on the CPU;
+  moments within 1e-5 of the sum of the absolute values of their terms, an
+  empty segment's row exactly 0; two launches bitwise equal.
 * K5 ``segment_moments``: within 1e-5 of the sum of the absolute values of
   its terms of the plain version at (P, S) = (5000, 700) and (26000, 3249),
   dropped ids included; two launches bitwise equal; one launch per
   ``cells.from_points`` call.
 * K3a ``ndt_linearize`` and K3b ``ndt_robust_cost``, W in {1, 3, 4} slots
   of N in {1, 255, 256, 257, 2048, 2049, 4096} pairs (one to two pairs per
-  thread of K3b's 2048-thread cluster, and ragged ends): within 1e-4 of
-  each output's scale (the sum of the absolute values of its per-pair
-  terms) of the plain versions (a few ulps of each term: the kernel
+  thread of the kernels' 2048-thread clusters, and ragged ends): within
+  1e-4 of each output's scale (the sum of the absolute values of its
+  per-pair terms) of the plain versions (a few ulps of each term: the kernel
   contracts multiply-adds and its powf is not torch.pow's); the maximum
   within 1e-5 of itself; two launches bitwise equal; a NaN in a valid pair
   passes on to its slot's cost and maximum, a NaN in an invalid pair to its
   cost only, and a slot without a valid pair costs exactly 0, as in the
-  plain version.
+  plain version; a NaN in a valid or an invalid pair makes its slot's H, g
+  and rho NaN where the plain version's are, and a slot without a valid
+  pair gives exactly 0.
 * K4 ``chol_solve``, P in {1, 9, 18, 31, 32, 36, 37, 63, 64} (each lane
   holds one, two or three rows of A and b) and B in {1, 3, 50} systems: within 4 P eps kappa |x|
   of the plain version and of a float64 solve, with the residual |A x - b|
@@ -70,22 +75,43 @@ def test_row_windows_kernel_matches_plain(dev, win):
 
 
 @pytest.mark.cuda
-def test_segment_topk_kernel_matches_plain(dev):
+@pytest.mark.parametrize("P,S,k,CH,ids_kind", [
+    (26000, 3249, 512, 13, "random"),
+    (5000, 700, 255, 13, "random"),
+    (5000, 700, 3, 1, "random"),
+    (4000, 900, 513, 16, "random"),
+    (5000, 700, 255, 13, "all_dropped"),
+    (5000, 700, 255, 13, "empty_segments"),
+])
+def test_segment_topk_kernel_matches_plain(dev, P, S, k, CH, ids_kind):
+    """k not a multiple of the kernel's group of kept ranks, CH from 1 to
+    16; every id -1; kept segments that no point falls in (their rows are
+    exactly 0)."""
     rng = np.random.default_rng(3)
-    P, S, k = 26000, 3249, 512
-    vals = rng.normal(0, 30.0, (P, 13)).astype(np.float32)
+    vals = rng.normal(0, 30.0, (P, CH)).astype(np.float32)
     vals[:, 0] = (rng.random(P) < 0.5).astype(np.float32)
     vals = torch.from_numpy(vals).to(dev)
-    ids = torch.from_numpy(rng.integers(-1, S + 2, P)).to(dev)
+    if ids_kind == "all_dropped":
+        ids = np.full(P, -1)
+    elif ids_kind == "empty_segments":  # 100 segments hold points, k > 100
+        ids = rng.integers(-1, 100, P)
+    else:
+        ids = rng.integers(-1, S + 2, P)
+    ids = torch.from_numpy(ids).to(dev)
     out, topi = K2.segment_topk_moments(vals, ids, S, k)
     again, topi2 = K2.segment_topk_moments(vals, ids, S, k)
     plain = K2.topi_moments_plain(vals, ids, topi, S)
     scale = K2.topi_moments_plain(vals.abs(), ids, topi, S)
     cpu_out, cpu_topi = K2.segment_topk_moments(vals.cpu(), ids.cpu(), S, k)
     torch.cuda.synchronize()
+    assert out.shape == (k, CH)
     assert torch.equal(topi, topi2) and torch.equal(out, again)
     assert torch.equal(topi.cpu(), cpu_topi)
     assert bool(((out - plain).abs() <= 1e-5 * scale).all())
+    empty = ~torch.isin(topi, ids)
+    if ids_kind != "random":
+        assert bool(empty.any())
+    assert bool((out[empty] == 0).all())
 
 
 @pytest.mark.cuda
@@ -231,6 +257,36 @@ def test_robust_cost_kernel_passes_nan_on(dev, case):
     else:
         assert bool(c[1].isnan())
         assert bool(m[1].isnan()) == (case == "valid_nan")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["valid_nan", "invalid_nan", "all_invalid"])
+def test_linearize_kernel_passes_nan_on(dev, case):
+    """Slot 1: a NaN in a valid or in an invalid pair makes its H, g and rho
+    NaN where the plain version's are (every term is multiplied by the valid
+    weight), the other slots stay finite; a slot without a valid pair gives
+    exactly 0."""
+    rng = np.random.default_rng(6)
+    pose4, packed = _pairs(rng, 3, 2048, dev)
+    mu = torch.tensor(4.0, device=dev)
+    ns = torch.tensor(0.37, device=dev)
+    if case == "all_invalid":
+        packed[4][1] = 0.0
+    else:
+        pick = packed[4][1, 0] > 0 if case == "valid_nan" else packed[4][1, 0] == 0
+        packed[2][1, 0, int(torch.nonzero(pick)[0])] = float("nan")
+    out = K3.linearize_cuda(pose4, mu, ns, packed, 1.0, -2.0)
+    again = K3.linearize_cuda(pose4, mu, ns, packed, 1.0, -2.0)
+    plain = K3.linearize_plain(pose4, mu, ns, packed, 1.0, -2.0)
+    torch.cuda.synchronize()
+    for a, b, p in zip(out, again, plain):
+        assert torch.allclose(a, b, rtol=0.0, atol=0.0, equal_nan=True)
+        assert torch.equal(a.isnan(), p.isnan())
+        assert bool(a[[0, 2]].isfinite().all())
+        if case == "all_invalid":
+            assert bool((a[1] == 0).all())
+        else:
+            assert bool(a[1].isnan().all())
 
 
 @pytest.mark.cuda

@@ -29,8 +29,10 @@ Phases (any failed check raises and the script exits non-zero):
    floor (an empty launch timed the same way), K4's time for all the
    frame's systems in one launch, whether K4 beats ``cholesky_ex`` +
    ``cholesky_solve``, K2's whole call (counts, stable sort and kernel),
-   and K2's, K3a's, K3b's and K4's times in their earlier designs
-   (PERF.md);
+   K5's whole call on the frame and on a dense seeded set, the device
+   launches of one K1 and one K5 call (the profiler: exactly the kernel),
+   and K1's, K2's, K3a's, K3b's, K4's and K5's times in their earlier
+   designs (PERF.md);
 4. per odometry path, ``run_odometry`` over rendered frames of that
    geometry (80 with the switches on, 40 off): exact launch counts (K1 and K2 once per frame; per
    ``estimate_window`` call K3a and K4 gnc_steps x lm_max_iterations times
@@ -121,6 +123,11 @@ K3A_ONE_BLOCK_US = 15.20
 K3B_ONE_BLOCK_US = 14.30
 K4_ONE_BLOCK_US = 79.58
 K2_BLOCK_PER_SEGMENT_US = 27.49
+# and K1's (a block per row behind an int32 cast of the starts) and K5's
+# (a plain stable sort, binary search and casts before a kernel over the
+# runs), their whole calls
+K1_BLOCK_PER_ROW_US = 7.84
+K5_SORT_AND_RUNS_US = 117.44
 
 
 def render_frames(n_frames, seed=0, laps=None):
@@ -209,6 +216,30 @@ def frame_inputs(cfg, scan_np, az, ranges, dev):
     return k1, (values, ids, num, cfg.capacity.max_scan_cells), k5
 
 
+def device_kernels(fn):
+    """The device kernels one call of ``fn`` launches, as (name, count)
+    pairs from a ``torch.profiler`` trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows, _, _ = trace_rows(prof.profiler.kineto_results.events())
+    return [(name, n) for _, n, name in rows]
+
+
+def only_kernel(label, fn, kernel):
+    """Fail unless one call of ``fn`` launches exactly one device kernel,
+    ``kernel``; returns the count printed beside the times."""
+    seen = device_kernels(fn)
+    if len(seen) != 1 or seen[0][1] != 1 or kernel not in seen[0][0]:
+        raise AssertionError(f"{label}: one call launched {seen}, expected one {kernel}")
+    return 1
+
+
 def check_k1(k1_sets, dev):
     import torch
 
@@ -224,6 +255,8 @@ def check_k1(k1_sets, dev):
         err = max(err, float((a[0] - b[0]).abs().max()), float((a[1] - b[1]).abs().max()))
     img, rng_row, starts, win = k1_sets[-1]
     A, R = img.shape
+    per_call = only_kernel("K1 row_windows", lambda: K1.row_windows(img, rng_row, starts, win),
+                           "row_windows_kernel")
     jw = (starts[:, None] + torch.arange(win, device=dev)[None, :]).clamp(0, R - 1)
     t = dict(
         ms=device_ms(lambda: K1.row_windows_cuda(img, rng_row, starts, win)),
@@ -231,13 +264,15 @@ def check_k1(k1_sets, dev):
         library_ms=device_ms(lambda: torch.gather(img, 1, jw)),
     )
     # the least the function must move: the image windows, the range row and
-    # the row starts read once, two (A, win) float32 outputs written
-    nbytes = A * win * 4 + R * 4 + A * 4 + 2 * A * win * 4
+    # the row starts (int64) read once, two (A, win) float32 outputs written
+    nbytes = A * win * 4 + R * 4 + A * starts.element_size() + 2 * A * win * 4
     b, by = bound_ms(nbytes, 0)
     print(f"K1 row_windows: bitwise equal to plain on {len(k1_sets)} inputs; "
-          f"kernel {t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
-          f"torch.gather (image half only) {t['library_ms'] * 1e3:.2f} us, "
-          f"bound {b * 1e3:.3f} us ({by}, {nbytes} B)", flush=True)
+          f"{per_call} device launch per call (the kernel, int64 starts read as "
+          f"they come); kernel {t['ms'] * 1e3:.2f} us (a block per row with an "
+          f"int32 cast {K1_BLOCK_PER_ROW_US:.2f} us), plain {t['plain_ms'] * 1e3:.2f} "
+          f"us, torch.gather (image half only) {t['library_ms'] * 1e3:.2f} us, bound "
+          f"{b * 1e3:.3f} us ({by}, {nbytes} B)", flush=True)
     return dict(max_abs_err=err, bound_ms=b, bound_by=by, **t)
 
 
@@ -294,13 +329,17 @@ def check_k2(k2_sets, dev):
     return dict(max_abs_err=err, bound_ms=b, bound_by=by, **t)
 
 
-def check_k5(k5_sets, entry, cfg, dev):
+def check_k5(k5_sets, entry, cfg, dev, per_call):
     """K5 against its plain version on seeded sets and a rendered frame's
     scan NDT inputs: every element within 1e-5 of the sum of the absolute
-    values of its terms, two launches bitwise equal.  Then its entry point
-    ``cells.from_points`` on that frame, once with the counts at 0: the rows
-    at K2's top-k segments agree with ``from_points_compact`` within the
-    same rule.  Returns the record and the entry run's launch count."""
+    values of its terms, two launches bitwise equal, a segment without
+    points exactly 0.  Then its entry point ``cells.from_points`` on that
+    frame, once with the counts at 0: the rows at K2's top-k segments agree
+    with ``from_points_compact`` within the same rule.  Times the whole
+    ``segment_moments`` call (one launch of the kernel, nothing else) on the
+    frame and on the dense seeded set; ``per_call`` is its device launches
+    per call (:func:`only_kernel`).  Returns the record and the entry run's
+    launch count."""
     import torch
 
     from randt_slam_torch.ndt import cells as C
@@ -318,6 +357,8 @@ def check_k5(k5_sets, entry, cfg, dev):
             raise AssertionError("K5: two launches are not bitwise identical")
         if not bool(((out - plain).abs() <= 1e-5 * scale).all()):
             raise AssertionError("K5: sums differ from plain beyond 1e-5 of their scale")
+        if not bool((out[scale.sum(1) == 0] == 0).all()):
+            raise AssertionError("K5: a segment without points is not exactly 0")
         err = max(err, float((out - plain).abs().max()))
 
     # the entry point, driven once with the counts at 0
@@ -338,37 +379,44 @@ def check_k5(k5_sets, entry, cfg, dev):
             raise AssertionError("K5: from_points rows at K2's top-k differ from "
                                  "from_points_compact beyond 1e-5 of their scale")
 
-    values, ids, num = k5_sets[-1]
-    P, CH = values.shape
-    perm, offsets = K5.segment_order(ids, num)
-    ok = (ids >= 0) & (ids < num)
-    safe = torch.where(ok, ids, num).long()
-    t = dict(
-        ms=device_ms(lambda: K5.segment_sum_cuda(values, perm, offsets)),
-        plain_ms=device_ms(lambda: K5.segment_moments_plain(values, ids, num)),
-        library_ms=device_ms(lambda: torch.zeros(num + 1, CH, device=dev).index_add_(
-            0, safe, values)),
-    )
-    whole_ms = device_ms(lambda: K5.segment_moments(values, ids, num))
-    # the least the function must move: every id read once, the value rows
-    # of the kept points only (a dropped id's row adds to no sum), the
-    # (S, CH) sums written once; one add per kept value
-    kept = int(ok.sum())
-    nbytes = P * 4 + kept * CH * 4 + num * CH * 4
-    b, by = bound_ms(nbytes, kept * CH)
+    def timed(values, ids, num):
+        """The whole call's time, the plain version's and index_add_'s, and
+        the bound: every id read once (at its own width), the value rows of
+        the kept points only (a dropped id's row adds to no sum), the
+        (S, CH) sums written once; one add per kept value."""
+        P, CH = values.shape
+        ok = (ids >= 0) & (ids < num)
+        safe = torch.where(ok, ids, num).long()
+        t = dict(
+            ms=device_ms(lambda: K5.segment_moments(values, ids, num)),
+            plain_ms=device_ms(lambda: K5.segment_moments_plain(values, ids, num)),
+            library_ms=device_ms(lambda: torch.zeros(num + 1, CH, device=dev).index_add_(
+                0, safe, values)),
+        )
+        kept = int(ok.sum())
+        nbytes = P * ids.element_size() + kept * CH * 4 + num * CH * 4
+        b, by = bound_ms(nbytes, kept * CH)
+        return t, dict(bound_ms=b, bound_by=by, nbytes=nbytes, kept=kept, P=P, S=num)
+
+    t, bd = timed(*k5_sets[-1])
+    td, bdd = timed(*k5_sets[-2])  # the dense seeded set at the frame's P and S
+    for label, tt, b in (("the rendered frame", t, bd), ("the dense seeded set", td, bdd)):
+        print(f"K5 segment_moments on {label} (P={b['P']}, S={b['S']}, {b['kept']} kept "
+              f"points, ids {'int64' if label.endswith('frame') else 'int32'}): the "
+              f"whole call {tt['ms'] * 1e3:.2f} us ({per_call} device launch, the "
+              f"kernel; the plain sort, search and casts with the run kernel "
+              f"{K5_SORT_AND_RUNS_US:.2f} us), plain {tt['plain_ms'] * 1e3:.2f} us, "
+              f"index_add_ (atomic, not reproducible) {tt['library_ms'] * 1e3:.2f} us, "
+              f"bound {b['bound_ms'] * 1e3:.4f} us ({b['bound_by']}, {b['nbytes']} B), "
+              f"{'faster' if tt['ms'] < tt['library_ms'] else 'NOT faster'} than "
+              f"index_add_", flush=True)
     print(f"K5 segment_moments: within 1e-5 of the scale of plain, two launches "
-          f"bitwise equal, on {len(k5_sets)} inputs (the last a rendered frame: "
-          f"P={P}, S={num}, {kept} kept points); from_points launched K5 once and "
-          f"agrees with from_points_compact at K2's top-{k}; kernel "
-          f"{t['ms'] * 1e3:.2f} us, the whole call with its plain sort and "
-          f"search {whole_ms * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
-          f"index_add_ (atomic, not reproducible) {t['library_ms'] * 1e3:.2f} us, "
-          f"bound {b * 1e3:.4f} us ({by}, {nbytes} B: {P} ids, {kept} kept value "
-          f"rows, {num} sums; all {P} value rows would be "
-          f"{(P * (CH + 1) + num * CH) * 4} B; the permutation and run offsets "
-          f"this design materialises, {(P + num + 1) * 4} B more, are not "
-          f"counted)", flush=True)
-    return dict(max_abs_err=err, bound_ms=b, bound_by=by, **t), launches["segment_moments"]
+          f"bitwise equal, empty segments exactly 0, on {len(k5_sets)} inputs; "
+          f"from_points launched K5 once and agrees with from_points_compact at "
+          f"K2's top-{k}", flush=True)
+    return dict(max_abs_err=err, bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
+                dense_ms=td["ms"], dense_library_ms=td["library_ms"],
+                dense_bound_ms=bdd["bound_ms"], **t), launches["segment_moments"]
 
 
 def capture_solve_inputs(cfg, frames, dev, frame):
@@ -1135,6 +1183,12 @@ def main() -> int:
           f"kernels are, {floor_ms * 1e3:.2f} us", flush=True)
     k1 = check_k1(k1_sets, dev)
     k2 = check_k2(k2_sets, dev)
+    # K5's device launches per call, taken here: a profiler window this
+    # short saw no device event once the odometry paths' windows had run
+    from randt_slam_torch.ops import segment_moments as K5
+    k5_per_call = only_kernel("K5 segment_moments",
+                              lambda: K5.segment_moments(*k2_frame[:3]),
+                              "segment_sum_kernel")
 
     # ---- 3. (cont.) K3a/K3b/K4 on the inputs of one frame's LM solve -----
     frames = slam.frames_from_arrays(scans, az, ranges, stamps, device=dev)
@@ -1180,7 +1234,7 @@ def main() -> int:
             np.float32)).to(dev), torch.from_numpy(r5.integers(
                 -1, S + 2, P).astype(np.int32)).to(dev), S))
     k5_sets.append(k2_frame[:3])
-    k5, k5_launches = check_k5(k5_sets, k5_entry, cfg, dev)
+    k5, k5_launches = check_k5(k5_sets, k5_entry, cfg, dev, k5_per_call)
     k5_s = time.perf_counter() - t_phase
 
     # ---- 7. full SLAM --------------------------------------------------------

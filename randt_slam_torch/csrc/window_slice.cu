@@ -13,46 +13,75 @@
 // the Oxford geometry moves ~0.2 MB in and ~0.2 MB out (400 rows x 65
 // columns, two outputs), a fraction of a microsecond at 3.35 TB/s.  The TPU
 // kernel had to load aligned 256-lane slabs and rotate them into place; on
-// the GPU each thread simply reads its element.
+// the GPU each lane simply reads its elements.
 //
-// Design: one block per azimuth row, one thread per window column
-// (win <= 1024, 65 on the main path).  Neighbouring threads read neighbouring
-// addresses of one row, so each row's window is one or two coalesced
-// transactions.  Fusing the window into the rest of the scan filter is later
-// work; this kernel is right and simple first.
+// Design: one warp per row, kRows rows per block.  The row start is read
+// once per warp, as the int64 that torch.argmax returns (so the caller
+// launches no cast), and broadcast by a shuffle; lane l then takes columns
+// l, l + 32, l + 64, ..., kPerLane of them at a time, issuing all their
+// loads before any store.  Neighbouring lanes read neighbouring addresses
+// of one row, so each row's window is a few coalesced transactions.  What
+// is left is two dependent loads (the start, then the pixels) behind the
+// launch.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void row_windows_kernel(const float* __restrict__ img,
-                                   const float* __restrict__ rng_row,
-                                   const int* __restrict__ starts,
-                                   float* __restrict__ out_img,
-                                   float* __restrict__ out_rng,
-                                   int R, int win) {
-  const int a = blockIdx.x;
-  const int w = threadIdx.x;
-  if (w >= win) return;
-  int j = starts[a] + w;
-  j = j < 0 ? 0 : (j > R - 1 ? R - 1 : j);
-  const size_t o = static_cast<size_t>(a) * win + w;
-  out_img[o] = img[static_cast<size_t>(a) * R + j];
-  out_rng[o] = rng_row[j];
+constexpr int kRows = 4;     // rows (warps) per block
+constexpr int kPerLane = 4;  // columns a lane loads before it stores
+
+__global__ void __launch_bounds__(kRows * 32)
+row_windows_kernel(const float* __restrict__ img,
+                   const float* __restrict__ rng_row,
+                   const long long* __restrict__ starts,
+                   float* __restrict__ out_img, float* __restrict__ out_rng,
+                   int A, int R, int win) {
+  const int lane = threadIdx.x & 31;
+  const int a = blockIdx.x * kRows + (threadIdx.x >> 5);
+  if (a >= A) return;  // whole warps leave together
+  long long start = lane == 0 ? starts[a] : 0;
+  start = __shfl_sync(0xffffffffu, start, 0);
+  const float* row = img + static_cast<size_t>(a) * R;
+  float* oi = out_img + static_cast<size_t>(a) * win;
+  float* orng = out_rng + static_cast<size_t>(a) * win;
+  for (int w0 = lane; w0 < win; w0 += 32 * kPerLane) {
+    float vi[kPerLane], vr[kPerLane];
+#pragma unroll
+    for (int u = 0; u < kPerLane; ++u) {
+      const int w = w0 + 32 * u;
+      if (w < win) {
+        long long j = start + w;
+        j = j < 0 ? 0 : (j > R - 1 ? R - 1 : j);
+        vi[u] = row[j];
+        vr[u] = rng_row[j];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPerLane; ++u) {
+      const int w = w0 + 32 * u;
+      if (w < win) {
+        oi[w] = vi[u];
+        orng[w] = vr[u];
+      }
+    }
+  }
 }
 
 }  // namespace
 
-// img (A, R), rng_row (R,), starts (A,) int32 -> out_img, out_rng (A, win);
-// all contiguous float32 on the device.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// img (A, R), rng_row (R,) float32, starts (A,) int64 -> out_img, out_rng
+// (A, win) float32; all contiguous on the device.  Launches on `stream` and
+// returns cudaGetLastError() (0 on success).
 extern "C" int row_windows_f32(const float* img, const float* rng_row,
-                               const int* starts, float* out_img,
+                               const long long* starts, float* out_img,
                                float* out_rng, int A, int R, int win,
                                void* stream) {
+  if (A < 0 || R < 1 || win < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (A > 0 && win > 0) {
-    row_windows_kernel<<<A, win, 0, static_cast<cudaStream_t>(stream)>>>(
-        img, rng_row, starts, out_img, out_rng, R, win);
+    row_windows_kernel<<<(A + kRows - 1) / kRows, kRows * 32, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        img, rng_row, starts, out_img, out_rng, A, R, win);
   }
   return static_cast<int>(cudaGetLastError());
 }

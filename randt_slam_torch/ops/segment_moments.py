@@ -14,10 +14,12 @@ so the multi-channel moment reduction only covers those ``k`` segments:
    :func:`topi_moments_plain` on CPU tensors.
 
 :func:`segment_moments` (K5, ``csrc/segment_sum.cu``): the full segment sum
-behind ``ndt/cells.from_points``.  The points are ordered by segment with a
-stable sort of the ids and each segment's run is found by a binary search
-(plain PyTorch, exact integer work); the kernel then sums each run in a
-fixed order.  CPU tensors take :func:`segment_moments_plain`.
+behind ``ndt/cells.from_points``.  On a CUDA tensor the whole function is
+one kernel launch: each of a cluster's blocks sums its stretch of the
+points per segment in point order (a stable counting sort in shared memory),
+and the stretches' sums are added in order, reading the ids
+as the caller has them (int32 or int64).  CPU tensors take
+:func:`segment_moments_plain`.
 """
 
 from __future__ import annotations
@@ -30,6 +32,10 @@ from .. import runtime
 from . import build
 
 MAX_CHANNELS = 16
+# K5's limits (``csrc/segment_sum.cu``): a block keeps its share of the
+# points in shared memory
+MAX_POINTS = 1 << 17
+MAX_SEGMENTS = 1 << 16
 
 
 def topi_moments_plain(values, ids, topi, num_segments: int):
@@ -112,53 +118,40 @@ def segment_moments_plain(values, ids, num_segments: int):
     return out[:num_segments]
 
 
-def segment_order(ids, num_segments: int):
-    """``(perm, offsets)``: the point order sorted by segment (stable, so the
-    order within a segment is the point order) and the run boundaries,
-    segment s owning sorted positions [offsets[s], offsets[s + 1]); dropped
-    ids sort after every segment.  Both int32."""
-    ok = (ids >= 0) & (ids < num_segments)
-    key = torch.where(ok, ids, num_segments).long()
-    sorted_key, perm = torch.sort(key, stable=True)
-    bounds = torch.arange(num_segments + 1, device=ids.device)
-    offsets = torch.searchsorted(sorted_key, bounds)
-    return perm.to(torch.int32), offsets.to(torch.int32)
-
-
-def _sum_lib():
+def _sum_fn(ids_dtype):
     lib = build.library("segment_sum")
-    fn = lib.segment_sum_f32
+    fn = (lib.segment_sum_i64_f32 if ids_dtype == torch.int64
+          else lib.segment_sum_i32_f32)
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, p]
+        fn.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def segment_sum_cuda(values, perm, offsets):
-    """Launch the K5 kernel.  ``values`` (P, CH) float32, ``perm`` (P,) and
-    ``offsets`` (S + 1,) int32 from :func:`segment_order`; raises on
+def segment_moments_cuda(values, ids, num_segments: int):
+    """Launch the K5 kernel: ``values`` (P, CH) float32, ``ids`` (P,) int32
+    or int64, ``num_segments`` <= MAX_SEGMENTS, P <= MAX_POINTS; raises on
     anything else."""
-    if not (values.is_cuda and perm.device == values.device
-            and offsets.device == values.device):
-        raise ValueError("segment_sum_cuda: all tensors must be on one CUDA device")
-    if values.dtype != torch.float32 or perm.dtype != torch.int32 \
-            or offsets.dtype != torch.int32:
-        raise TypeError("segment_sum_cuda: float32 values, int32 perm and offsets")
-    if values.dim() != 2 or perm.shape != (values.shape[0],) \
-            or offsets.dim() != 1 or offsets.shape[0] < 1:
-        raise ValueError("segment_sum_cuda: shapes (P, CH), (P,), (S + 1,) expected")
+    if not (values.is_cuda and ids.device == values.device):
+        raise ValueError("segment_moments_cuda: all tensors must be on one CUDA device")
+    if values.dtype != torch.float32 or ids.dtype not in (torch.int32, torch.int64):
+        raise TypeError("segment_moments_cuda: float32 values, int32 or int64 ids")
+    if values.dim() != 2 or ids.shape != (values.shape[0],):
+        raise ValueError("segment_moments_cuda: shapes (P, CH), (P,) expected")
     if not 1 <= values.shape[1] <= MAX_CHANNELS:
-        raise ValueError(f"segment_sum_cuda: 1 <= CH <= {MAX_CHANNELS}")
-    if not (values.is_contiguous() and perm.is_contiguous()
-            and offsets.is_contiguous()):
-        raise ValueError("segment_sum_cuda: inputs must be contiguous")
-    S = offsets.shape[0] - 1
-    CH = values.shape[1]
-    out = torch.empty((S, CH), dtype=torch.float32, device=values.device)
+        raise ValueError(f"segment_moments_cuda: 1 <= CH <= {MAX_CHANNELS}")
+    if not 0 <= num_segments <= MAX_SEGMENTS:
+        raise ValueError(f"segment_moments_cuda: 0 <= S <= {MAX_SEGMENTS}")
+    if values.shape[0] > MAX_POINTS:
+        raise ValueError(f"segment_moments_cuda: P <= {MAX_POINTS}")
+    if not (values.is_contiguous() and ids.is_contiguous()):
+        raise ValueError("segment_moments_cuda: inputs must be contiguous")
+    P, CH = values.shape
+    out = torch.empty((num_segments, CH), dtype=torch.float32, device=values.device)
     stream = torch.cuda.current_stream(values.device).cuda_stream
-    err = _sum_lib()(values.data_ptr(), perm.data_ptr(), offsets.data_ptr(),
-                     out.data_ptr(), S, CH, stream)
+    err = _sum_fn(ids.dtype)(values.data_ptr(), ids.data_ptr(), out.data_ptr(),
+                             P, num_segments, CH, stream)
     if err != 0:
         raise RuntimeError(f"segment_moments kernel launch failed: CUDA error {err}")
     build.LAUNCHES["segment_moments"] += 1
@@ -171,8 +164,8 @@ def segment_moments(values, ids, num_segments: int):
     (P, CH) float32: the kernel on a CUDA tensor, the plain version on a
     CPU tensor."""
     if values.device.type == "cuda":
-        perm, offsets = segment_order(ids, num_segments)
-        return segment_sum_cuda(values.contiguous(), perm, offsets)
+        return segment_moments_cuda(values.contiguous(), ids.contiguous(),
+                                    num_segments)
     if values.device.type == "cpu":
         return segment_moments_plain(values, ids, num_segments)
     raise ValueError(f"segment_moments: unsupported device {values.device}")

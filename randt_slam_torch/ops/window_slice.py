@@ -15,7 +15,7 @@ import torch
 
 from . import build
 
-MAX_WIN = 1024  # one thread per window column
+MAX_WIN = 1024  # the widest window the wrapper takes
 
 
 def row_windows_plain(img, rng_row, starts, win: int):
@@ -39,25 +39,28 @@ def _lib():
 
 
 def row_windows_cuda(img, rng_row, starts, win: int):
-    """Launch the K1 kernel; raises on anything it does not take."""
+    """Launch the K1 kernel: ``starts`` int64, as ``torch.argmax`` gives
+    them; raises on anything the kernel does not take."""
     if not (img.is_cuda and rng_row.device == img.device
             and starts.device == img.device):
         raise ValueError("row_windows_cuda: all tensors must be on one CUDA device")
     if img.dtype != torch.float32 or rng_row.dtype != torch.float32:
         raise TypeError("row_windows_cuda: img and rng_row must be float32")
+    if starts.dtype != torch.int64:
+        raise TypeError("row_windows_cuda: starts must be int64")
     if img.dim() != 2 or rng_row.shape != (img.shape[1],) \
             or starts.shape != (img.shape[0],):
         raise ValueError("row_windows_cuda: shapes (A, R), (R,), (A,) expected")
     if not 1 <= win <= MAX_WIN or img.shape[1] < 1:
         raise ValueError(f"row_windows_cuda: need 1 <= win <= {MAX_WIN}, R >= 1")
-    if not (img.is_contiguous() and rng_row.is_contiguous()):
+    if not (img.is_contiguous() and rng_row.is_contiguous()
+            and starts.is_contiguous()):
         raise ValueError("row_windows_cuda: inputs must be contiguous")
     A, R = img.shape
-    starts32 = starts.to(torch.int32).contiguous()
     out_img = torch.empty((A, win), dtype=torch.float32, device=img.device)
     out_rng = torch.empty((A, win), dtype=torch.float32, device=img.device)
     stream = torch.cuda.current_stream(img.device).cuda_stream
-    err = _lib()(img.data_ptr(), rng_row.data_ptr(), starts32.data_ptr(),
+    err = _lib()(img.data_ptr(), rng_row.data_ptr(), starts.data_ptr(),
                  out_img.data_ptr(), out_rng.data_ptr(), A, R, win, stream)
     if err != 0:
         raise RuntimeError(f"row_windows kernel launch failed: CUDA error {err}")

@@ -5,16 +5,21 @@ PyTorch is installed:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
-* K1 ``row_windows``: bitwise equal to the plain version (a gather).
+* K1 ``row_windows``: bitwise equal to the plain version (a gather), with
+  int64 starts, win in {1, 65, 128, 1024}, windows at both edges of the
+  padded row and past them (the per-element clamp).
 * K2 ``segment_topk_moments``, (P, S, k, CH) in {(26000, 3249, 512, 13),
   (5000, 700, 255, 13), (5000, 700, 3, 1), (4000, 900, 513, 16)}, every id
   -1, and kept segments without points: the same ``topi`` as on the CPU;
   moments within 1e-5 of the sum of the absolute values of their terms, an
   empty segment's row exactly 0; two launches bitwise equal.
 * K5 ``segment_moments``: within 1e-5 of the sum of the absolute values of
-  its terms of the plain version at (P, S) = (5000, 700) and (26000, 3249),
-  dropped ids included; two launches bitwise equal; one launch per
-  ``cells.from_points`` call.
+  its terms of the plain version on dense random ids at (P, S) = (5000,
+  700) and (26000, 3249), int32 and int64, dropped ids included; every id
+  dropped; all rows in one segment; a sparse frame-like set (about 7 % of
+  the rows kept, in runs along the beams); S and P at the kernel's limits;
+  CH 1 and 16; two launches bitwise equal and segments without points
+  exactly 0; one launch per ``cells.from_points`` call.
 * K3a ``ndt_linearize`` and K3b ``ndt_robust_cost``, W in {1, 3, 4} slots
   of N in {1, 255, 256, 257, 2048, 2049, 4096} pairs (one to two pairs per
   thread of the kernels' 2048-thread clusters, and ragged ends): within
@@ -61,13 +66,24 @@ def dev():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("win", [1, 65, 128])
-def test_row_windows_kernel_matches_plain(dev, win):
+@pytest.mark.parametrize("win", [1, 65, 128, 1024])
+@pytest.mark.parametrize("where", ["random", "left", "right"])
+def test_row_windows_kernel_matches_plain(dev, win, where):
+    """int64 starts, as torch.argmax gives them: anywhere (past both ends
+    too, where the per-element clamp decides), at the left edge of the
+    padded row, and ending at its right edge."""
     rng = np.random.default_rng(win)
     A, R = 400, 1221
     img = torch.from_numpy(rng.random((A, R), dtype=np.float32)).to(dev)
     rr = torch.from_numpy(rng.random(R, dtype=np.float32)).to(dev)
-    starts = torch.from_numpy(rng.integers(-win - 3, R + 3, A)).to(dev)
+    if where == "random":
+        starts = rng.integers(-win - 3, R + 3, A)
+    elif where == "left":
+        starts = np.zeros(A, np.int64)
+    else:
+        starts = np.full(A, R - win, np.int64)
+    starts = torch.from_numpy(starts).to(dev)
+    assert starts.dtype == torch.int64
     k = K1.row_windows(img, rr, starts, win)
     p = K1.row_windows_plain(img, rr, starts, win)
     torch.cuda.synchronize()
@@ -114,19 +130,50 @@ def test_segment_topk_kernel_matches_plain(dev, P, S, k, CH, ids_kind):
     assert bool((out[empty] == 0).all())
 
 
+def _k5_ids(rng, P, S, kind):
+    if kind == "all_dropped":
+        return np.full(P, -1, np.int64)
+    if kind == "one_run":  # every row in one segment
+        return np.full(P, S // 2, np.int64)
+    if kind == "frame_like":  # ~7 % kept, in runs of a beam; the rest S
+        ids = np.full(P, S, np.int64)
+        keep = rng.random(P) < 0.07
+        ids[keep] = np.repeat(rng.integers(0, S, P // 65 + 1), 65)[:P][keep]
+        return ids
+    return rng.integers(-1, S + 2, P)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,S", [(5000, 700), (26000, 3249)])
-def test_segment_moments_kernel_matches_plain(dev, P, S):
-    rng = np.random.default_rng(P)
-    vals = torch.from_numpy(rng.normal(0, 30.0, (P, 13)).astype(np.float32)).to(dev)
-    ids = torch.from_numpy(rng.integers(-1, S + 2, P).astype(np.int32)).to(dev)
+@pytest.mark.parametrize("P,S,CH,kind,dtype", [
+    (5000, 700, 13, "random", torch.int32),
+    (26000, 3249, 13, "random", torch.int32),
+    (26000, 3249, 13, "random", torch.int64),
+    (26000, 3249, 13, "all_dropped", torch.int64),
+    (26000, 3249, 13, "one_run", torch.int64),
+    (26000, 3249, 13, "frame_like", torch.int64),
+    (26000, K2.MAX_SEGMENTS, 13, "random", torch.int64),
+    (K2.MAX_POINTS, 3249, 13, "random", torch.int32),
+    (3000, 100, 1, "random", torch.int64),
+    (3000, 100, 16, "random", torch.int32),
+    (0, 10, 13, "random", torch.int64),
+])
+def test_segment_moments_kernel_matches_plain(dev, P, S, CH, kind, dtype):
+    rng = np.random.default_rng(P + S)
+    vals = torch.from_numpy(rng.normal(0, 30.0, (P, CH)).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(_k5_ids(rng, P, S, kind)).to(dtype).to(dev)
+    build.reset_launches()
     out = K2.segment_moments(vals, ids, S)
     again = K2.segment_moments(vals, ids, S)
+    assert build.LAUNCHES["segment_moments"] == 2
     plain = K2.segment_moments_plain(vals, ids, S)
     scale = K2.segment_moments_plain(vals.abs(), ids, S)
     torch.cuda.synchronize()
-    assert out.shape == (S, 13) and torch.equal(out, again)
+    assert out.shape == (S, CH) and torch.equal(out, again)
     assert bool(((out - plain).abs() <= 1e-5 * scale).all())
+    empty = scale.sum(1) == 0
+    assert bool((out[empty] == 0).all())
+    if kind in ("all_dropped", "one_run", "frame_like"):
+        assert bool(empty.any())
 
 
 @pytest.mark.cuda
@@ -302,18 +349,31 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         K2.topi_moments_cuda(torch.zeros(8, 20, device=dev),
                              torch.zeros(8, dtype=torch.int32, device=dev),
                              torch.zeros(2, dtype=torch.int32, device=dev))
-    perm = torch.zeros(8, dtype=torch.int32, device=dev)
-    offs = torch.zeros(3, dtype=torch.int32, device=dev)
     with pytest.raises(TypeError):
-        K2.segment_sum_cuda(torch.zeros(8, 13, device=dev).double(), perm, offs)
+        K1.row_windows(img, torch.zeros(16, device=dev),
+                       torch.zeros(4, dtype=torch.int32, device=dev), 5)
+    with pytest.raises(ValueError):
+        K1.row_windows(img, torch.zeros(16, device=dev),
+                       torch.zeros(8, dtype=torch.long, device=dev)[::2], 5)
+    vals = torch.zeros(8, 13, device=dev)
+    ids = torch.zeros(8, dtype=torch.int64, device=dev)
     with pytest.raises(TypeError):
-        K2.segment_sum_cuda(torch.zeros(8, 13, device=dev), perm.long(), offs)
+        K2.segment_moments_cuda(vals.double(), ids, 3)
+    with pytest.raises(TypeError):
+        K2.segment_moments_cuda(vals, ids.float(), 3)
     with pytest.raises(ValueError):
-        K2.segment_sum_cuda(torch.zeros(8, 13, device=dev), perm, offs.cpu())
+        K2.segment_moments_cuda(vals, ids.cpu(), 3)
     with pytest.raises(ValueError):
-        K2.segment_sum_cuda(torch.zeros(8, 17, device=dev), perm, offs)
+        K2.segment_moments_cuda(torch.zeros(8, 17, device=dev), ids, 3)
     with pytest.raises(ValueError):
-        K2.segment_sum_cuda(torch.zeros(8, 13, device=dev), perm[:4], offs)
+        K2.segment_moments_cuda(vals, ids[:4], 3)
+    with pytest.raises(ValueError):
+        K2.segment_moments_cuda(vals, ids, K2.MAX_SEGMENTS + 1)
+    with pytest.raises(ValueError):
+        K2.segment_moments_cuda(vals, ids, -1)
+    with pytest.raises(ValueError):
+        K2.segment_moments(torch.zeros(K2.MAX_POINTS + 1, 1, device=dev),
+                           torch.zeros(K2.MAX_POINTS + 1, dtype=torch.int64, device=dev), 3)
     pose4, packed = _pairs(np.random.default_rng(0), 2, 64, dev)
     one = torch.ones((), device=dev)
     with pytest.raises(TypeError):

@@ -8,9 +8,11 @@ id first; the port's stable sort must do the same).  Moments agree within
 1e-5 of the sum of the absolute values of their terms: a float32 sum of n
 terms carries O(n * 6e-8) of that scale in rounding, whatever the order.
 
-K5's CUDA kernel sums each segment's run of the segment-sorted points; the
-order and the runs (``segment_order``) are plain PyTorch and are checked
-here by summing the runs on the CPU.
+K5 is held on the CPU on dense random ids, on every id dropped and on a
+sparse frame-like set (about 7 % of the rows kept, ids in runs along the
+beams, the rest past the last segment as ``cluster_ids`` gives them); its
+CUDA kernel is held against the plain version in
+``test_torch_kernels_cuda.py``.
 """
 
 import importlib
@@ -80,37 +82,36 @@ def _within_scale(got, want, scale):
     assert np.all(err <= REL * np.asarray(scale) + 1e-30), err.max()
 
 
-@pytest.mark.parametrize("P,S", [(5000, 700), (26000, 3249)])
-def test_segment_moments_matches_jax(P, S):
+def _frame_like_ids(rng, P, S, beam=65):
+    """About 7 % of the rows kept: runs of a few neighbouring points along
+    a beam share a cell, every other id is S (dropped)."""
+    ids = np.full(P, S, np.int64)
+    keep = rng.random(P) < 0.07
+    cells = np.repeat(rng.integers(0, S, P // beam + 1), beam)[:P]
+    ids[keep] = cells[keep]
+    return ids
+
+
+@pytest.mark.parametrize("P,S,kind", [(5000, 700, "random"), (26000, 3249, "random"),
+                                      (26000, 3249, "random_int64"),
+                                      (26000, 3249, "all_dropped"),
+                                      (26000, 3249, "frame_like")])
+def test_segment_moments_matches_jax(P, S, kind):
     rng = np.random.default_rng(P + 1)
-    ids = rng.integers(-1, S + 2, P).astype(np.int32)  # includes dropped ids
+    if kind.startswith("random"):  # includes dropped ids
+        ids = rng.integers(-1, S + 2, P).astype(np.int64 if kind.endswith("64") else np.int32)
+    elif kind == "all_dropped":
+        ids = np.full(P, -1, np.int32)
+    else:
+        ids = _frame_like_ids(rng, P, S)
     vals = _values(P, 3)
     out_j = jsm.segment_moments(jnp.asarray(vals), jnp.asarray(ids), S)
     out_t = tsm.segment_moments(torch.from_numpy(vals), torch.from_numpy(ids), S)
     scale = jsm.segment_moments(jnp.asarray(np.abs(vals)), jnp.asarray(ids), S)
     assert out_t.shape == (S, vals.shape[1])
     _within_scale(out_t.numpy(), out_j, scale)
-
-
-@pytest.mark.parametrize("P,S", [(5000, 700), (26000, 3249)])
-def test_segment_order_runs_sum_to_plain(P, S):
-    """The kernel's decomposition: the stable order and the run offsets give
-    every kept point to its own segment's run, once, in point order."""
-    rng = np.random.default_rng(P + 2)
-    ids = torch.from_numpy(rng.integers(-1, S + 2, P).astype(np.int32))
-    vals = torch.from_numpy(_values(P, 4))
-    perm, offsets = tsm.segment_order(ids, S)
-    assert perm.dtype == offsets.dtype == torch.int32
-    assert offsets.shape == (S + 1,) and int(offsets[0]) == 0
-    assert int(offsets[-1]) == int(((ids >= 0) & (ids < S)).sum())
-    p, o = perm.long(), offsets.long()
-    for s in range(0, S, max(1, S // 50)):
-        run = p[o[s]:o[s + 1]]
-        assert torch.all(ids[run] == s) and torch.all(run[1:] > run[:-1])
-    runs = torch.stack([vals[p[o[s]:o[s + 1]]].sum(0) for s in range(S)])
-    plain = tsm.segment_moments_plain(vals, ids, S)
-    scale = tsm.segment_moments_plain(vals.abs(), ids, S)
-    _within_scale(runs.numpy(), plain.numpy(), scale.numpy())
+    if kind == "all_dropped":
+        assert not out_t.any()
 
 
 def test_from_points_with_pndt_matches_jax():

@@ -2,15 +2,17 @@
 
     python3 chip_smoke.py
 
-Three paths of the port run at the Oxford configuration: offline odometry
-with the kernel switches off (``oxford_config()``: the scan kernels K1 and
-K2, the LM loop in autograd and ``solve_ex``) and on
+Three paths of the port run at the Oxford configuration, and two modules
+after them: offline odometry with the kernel switches off
+(``oxford_config()``: the scan kernels K1 and K2, the LM loop in autograd
+and ``solve_ex``) and on
 (``use_pallas_linearize`` and ``use_pallas_chol``: also the fused
 linearize/cost kernels K3a/K3b and the Cholesky kernel K4 in the LM loop),
 and full offline SLAM (``run_slam``: odometry with the switches on,
-ScanContext loop closure with the CS gate, the pose graph).  The full
-segment sum K5 has no pipeline caller; its entry point is
-``ndt/cells.from_points``.
+ScanContext loop closure with the CS gate, the pose graph), then the
+occupancy grid of that SLAM run and the Schur-complement pose graph at a
+full sequence's size.  The full segment sum K5 has no pipeline caller; its
+entry point is ``ndt/cells.from_points``.
 
 Phases (any failed check raises and the script exits non-zero):
 
@@ -66,7 +68,22 @@ Phases (any failed check raises and the script exits non-zero):
    CPU (identical candidate and edge tables; optimized poses within 1e-3 m /
    1e-4 rad; the CS gate on the card run's cells and refined poses within
    1e-4 relative; free-running, the refined edges within one ulp-decided LM
-   step and the CS divergences within the band below).
+   step and the CS divergences within the band below);
+8. the occupancy grid of that run: ``render_ogm`` at the Oxford OGM
+   configuration (13 submaps of 3990 x 3990 int32 counts), twice on the
+   card and once on the CPU: exact launches (K1 once per keyframe node,
+   nothing else), the counting grids bitwise equal across the three runs
+   and the occupancy within 1e-5; wall seconds, peak device memory and the
+   counts' range; a third card run under the profiler (device busy share,
+   launches, top kernels);
+9. the Schur-complement pose graph at a full Oxford sequence's size: the
+   JAX package's ``bench.py`` graph of 4077 nodes through ``optimize_auto``
+   on the card (the Schur route, no kernel of the port launched, bitwise
+   repeatable), held to the ground truth, to the dense route on the card
+   and to the Schur route on the CPU within ``SCHUR_BAND``; the steady
+   call's wall ms, iterations and ms per iteration, the
+   ``max_iterations=10`` figure ``bench.py`` reports, and a profile of that
+   call (device busy share, launches per iteration, top kernels).
 
 The second-to-last line of the output is the kernels' JSON record, the last
 line ``{"ok": true, "device": {...}}``.
@@ -104,6 +121,17 @@ ATE_BAND_M = 0.25       # odometry ATE over the main runs (40-80 m driven)
 # 6.26e-3 m, 7.93e-5 rad, 8.36e-4), inside the CPU tests' one-step band
 LOOP_EDGE_BAND = (1.3e-2, 1.6e-4)
 LOOP_CS_BAND = 1.7e-3
+# the Schur-complement pose graph at a full Oxford sequence's size
+# (bench.py's graph); its solve is held to the ground truth, to the dense
+# solve and to its own CPU run within a (m, rad) band of twice the larger
+# reading of CPU runs of the same two solves (scripts/torch_schur_band.py on
+# 6 and 8 threads: Schur against the ground truth 4.01e-3 m / 4.00e-5 rad
+# and 7.54e-3 m / 7.50e-5 rad, against the dense solve 4.02e-3 m / 4.01e-5
+# rad and 7.53e-3 m / 7.49e-5 rad; the Schur route stops at the
+# 100-iteration cap a few mm from the optimum, where the dense one
+# converges to 1.2e-5-1.5e-5 m of it, as in the JAX package: PERF.md)
+SCHUR_NODES = 4077
+SCHUR_BAND = (1.51e-2, 1.5e-4)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOPS = 67e12          # H100 SXM, non-tensor float32, published
 CAPTURE_FRAME = 10          # the frame whose LM-solve inputs K3a/K3b/K4 check
@@ -157,6 +185,43 @@ def render_frames(n_frames, seed=0, laps=None):
     ]).astype(np.float32)
     stamps = (np.arange(n_frames) * 0.25).astype(np.float32)
     return scans, az, ranges, stamps, gt
+
+
+def bench_graph(n_nodes):
+    """The JAX package's ``bench.py`` pose graph (:91-135), numpy: a noisy
+    two-lap circle of ``n_nodes`` nodes, odometry edges and loop edges every
+    100 nodes of the second lap back to the matching first-lap submap root,
+    all measuring exact ground-truth relative poses (so the optimum is the
+    ground truth); submaps of 8 nodes with a root each, ``node_submap``
+    capped at n // 8 - 1, so the last submap holds two roots.  Returns
+    (poses, id_begin, id_end, trans, sqrt_information, node_submap,
+    node_is_root, gt)."""
+    rng = np.random.default_rng(1)
+    t = np.linspace(0, 4 * np.pi, n_nodes)
+    gt = np.stack([60 * np.cos(t), 60 * np.sin(t), t + np.pi / 2], 1)
+    noisy = gt + np.concatenate(
+        [np.zeros((1, 3)), np.cumsum(rng.normal(0, 0.03, (n_nodes - 1, 3)), 0)])
+    eb = np.arange(n_nodes - 1)
+    ee = eb + 1
+    c, s = np.cos(gt[:-1, 2]), np.sin(gt[:-1, 2])
+    d = gt[1:] - gt[:-1]
+    trans = np.stack([c * d[:, 0] + s * d[:, 1], -s * d[:, 0] + c * d[:, 1], d[:, 2]], 1)
+    per, lap = 8, n_nodes // 2
+    lq = np.arange(lap, n_nodes - 1, 100)           # query nodes
+    lr = ((lq - lap) // per) * per                  # matched submap roots
+    cl, sl = np.cos(gt[lr, 2]), np.sin(gt[lr, 2])
+    dl = gt[lq] - gt[lr]
+    ltrans = np.stack([cl * dl[:, 0] + sl * dl[:, 1],
+                       -sl * dl[:, 0] + cl * dl[:, 1], dl[:, 2]], 1)
+    eb, ee = np.concatenate([eb, lr]), np.concatenate([ee, lq])
+    trans = np.concatenate([trans, ltrans])
+    sqrt_i = np.tile(np.diag([10.0, 10.0, 50.0]), (len(eb), 1, 1))
+    node_submap = np.minimum(np.arange(n_nodes) // per, n_nodes // per - 1)
+    node_is_root = np.zeros(n_nodes, bool)
+    node_is_root[::per] = True
+    f32 = np.float32
+    return (noisy.astype(f32), eb, ee, trans.astype(f32), sqrt_i.astype(f32),
+            node_submap, node_is_root, gt)
 
 
 def device_ms(fn, reps=50):
@@ -953,7 +1018,7 @@ def gate_from_identical_inputs(cfg, odo, frames, loops, dev):
 
 def slam_phase(cfg, dev):
     """Phase 7: full SLAM over a looping drive; returns the run's launch
-    counts."""
+    counts, its result and its frames."""
     import torch
 
     from randt_slam_torch.io import formats
@@ -1112,7 +1177,175 @@ def slam_phase(cfg, dev):
                "randt.pgo"} - set(layers)
     if missing:
         raise AssertionError(f"profile: ranges {sorted(missing)} not seen")
-    return launches
+    return launches, res, frames
+
+
+def se2_gap(a, b):
+    """Largest position (m) and heading (rad, modulo 2 pi) gap of two pose
+    arrays."""
+    d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+    d[:, 2] = np.arctan2(np.sin(d[:, 2]), np.cos(d[:, 2]))
+    return float(np.abs(d[:, :2]).max()), float(np.abs(d[:, 2]).max())
+
+
+@contextlib.contextmanager
+def counting_schur_iterations():
+    """Sum the Gauss-Newton iterations of the ``schur.optimize_schur`` calls
+    made inside the block (both stages of the two-stage schedule)."""
+    from randt_slam_torch.graph import schur
+
+    its, optimize_schur = [0], schur.optimize_schur
+
+    def counted(*a, **k):
+        poses, info = optimize_schur(*a, **k)
+        its[0] += info["iterations"]
+        return poses, info
+
+    schur.optimize_schur = counted
+    try:
+        yield its
+    finally:
+        schur.optimize_schur = optimize_schur
+
+
+def schur_phase(dev, smi):
+    """Phase 9: bench.py's graph of SCHUR_NODES nodes through
+    ``schur.optimize_auto`` on the card (the Schur route, the two-stage DCS
+    schedule of the shipped configuration), against the ground truth, the
+    dense route on the card and the Schur route on the CPU; wall times of
+    the steady (second) call, iterations and ms per iteration, and
+    ``bench.py``'s ``pose_graph_solve_ms`` figure (max_iterations=10)."""
+    import torch
+
+    from randt_slam_torch.config import GlobalFuserConfig
+    from randt_slam_torch.graph import pose_graph as PG
+    from randt_slam_torch.graph import schur
+    from randt_slam_torch.ops import build
+
+    poses, eb, ee, trans, sqrt_i, node_submap, node_is_root, gt = bench_graph(SCHUR_NODES)
+
+    def graph(device):
+        def put(x):
+            return torch.from_numpy(x).to(device)
+        return PG.PoseGraph(put(poses), put(eb), put(ee), put(trans), put(sqrt_i),
+                            torch.ones(len(eb), dtype=torch.bool, device=device))
+
+    def solve(g, cfg, submaps=True):
+        kw = dict(node_submap=node_submap, node_is_root=node_is_root) if submaps else {}
+        with counting_schur_iterations() as its:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, info = schur.optimize_auto(g, cfg, **kw)
+            p = p.cpu().numpy()
+            wall = time.perf_counter() - t0
+        return p, info, wall, its[0]
+
+    g = graph(dev)
+    cfg = GlobalFuserConfig()
+    build.reset_launches()
+    card, info, cold, _ = solve(g, cfg)
+    launches = dict(build.LAUNCHES)
+    again, _, steady, its = solve(g, cfg)
+    if info["solver"] != "schur" or not info.get("two_stage"):
+        raise AssertionError(f"{SCHUR_NODES} nodes took {info}")
+    if any(launches.values()):
+        raise AssertionError(f"the Schur route launched {launches}")
+    if not (np.array_equal(card, again) and np.all(np.isfinite(card))):
+        raise AssertionError("two Schur solves on the card differ or are not finite")
+    b10, _, _, _ = solve(g, GlobalFuserConfig(max_iterations=10))
+    _, _, wall10, its10 = solve(g, GlobalFuserConfig(max_iterations=10))
+    # where an iteration's time goes: the max_iterations=10 solve profiled
+    (_, _, _, its_p), pw, rows, total, layers = profile_window(
+        lambda: solve(g, GlobalFuserConfig(max_iterations=10)))
+    print(f"profile, Schur route, max_iterations=10 ({its_p} iterations): wall "
+          f"{pw * 1e3:.1f} ms, device busy {total / 1e3:.1f} ms ({100 * total / 1e6 / pw:.1f}% "
+          f"of wall), {sum(r[1] for r in rows) / its_p:.1f} device launches per "
+          f"iteration", flush=True)
+    print_profile(rows, layers, its_p, "iteration")
+    dense, dinfo, dense_s, _ = solve(g, cfg, submaps=False)
+    if dinfo["solver"] != "dense":
+        raise AssertionError(f"the dense comparison took {dinfo}")
+    cpu, cinfo, cpu_s, _ = solve(graph("cpu"), cfg)
+    gaps = {"ground truth": se2_gap(card, gt), "the dense solve": se2_gap(card, dense),
+            "the CPU's Schur solve": se2_gap(card, cpu)}
+    print(f"Schur pose graph, bench.py's graph of {SCHUR_NODES} nodes ({len(eb)} edges, "
+          f"{int(node_is_root.sum())} roots), on {smi}: optimize_auto took the Schur "
+          f"route with the two-stage DCS schedule, launched none of the port's kernels, "
+          f"repeats bitwise; steady (second) call {steady * 1e3:.1f} ms wall for {its} "
+          f"iterations over both stages ({info['iterations']} in the second) = "
+          f"{steady * 1e3 / its:.2f} ms per iteration (cold {cold * 1e3:.1f} ms); "
+          f"max_iterations=10 (bench.py's pose_graph_solve_ms_4077_nodes): "
+          f"{wall10 * 1e3:.1f} ms for {its10} iterations, "
+          f"{se2_gap(b10, gt)[0]:.3g} m from the ground truth; the dense route on the "
+          f"card {dense_s:.2f} s ({dinfo['iterations']} iterations in the second "
+          f"stage); the Schur route on the CPU {cpu_s:.2f} s", flush=True)
+    for what, (m, rad) in gaps.items():
+        print(f"  Schur on the card against {what}: {m:.3e} m / {rad:.3e} rad "
+              f"(band {SCHUR_BAND[0]:.3e} m / {SCHUR_BAND[1]:.3e} rad)", flush=True)
+        if not (m <= SCHUR_BAND[0] and rad <= SCHUR_BAND[1]):
+            raise AssertionError(f"Schur solve off {what} beyond the band")
+    return dict(steady_ms=steady * 1e3, iterations=its, ms_per_iteration=steady * 1e3 / its,
+                max10_ms=wall10 * 1e3)
+
+
+def ogm_phase(cfg, res, frames, dev):
+    """Phase 8: ``render_ogm`` on the full-SLAM run's result at the Oxford
+    OGM configuration, twice on the card (exact launches: K1 once per
+    keyframe node and nothing else; bitwise-equal grids) and once on the
+    CPU (counting grids bitwise equal, occupancy within 1e-5).  Returns the
+    card run's K1 launches."""
+    import torch
+
+    from randt_slam_torch.ops import build
+    from randt_slam_torch.pipeline import slam
+
+    n_nodes = len(res.odometry.node_id)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    occ, grids = slam.render_ogm(cfg, res, frames, device=dev)
+    cold = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {n: (n_nodes if n == "row_windows" else 0) for n in launches}
+    if launches != want:
+        raise AssertionError(f"render_ogm launched {launches}, expected K1 once per "
+                             f"node ({n_nodes}) and nothing else")
+    t0 = time.perf_counter()
+    occ2, grids2 = slam.render_ogm(cfg, res, frames, device=dev)
+    steady = time.perf_counter() - t0
+    _, pw, rows, total, layers = profile_window(
+        lambda: slam.render_ogm(cfg, res, frames, device=dev))
+    print(f"profile, render_ogm (a third card run): wall {pw * 1e3:.1f} ms, device "
+          f"busy {total / 1e3:.1f} ms ({100 * total / 1e6 / pw:.1f}% of wall), "
+          f"{sum(r[1] for r in rows)} device launches", flush=True)
+    print_profile(rows, layers, 1, "run")
+    if not (np.array_equal(grids, grids2) and np.array_equal(occ, occ2)):
+        raise AssertionError("render_ogm: two card runs differ")
+    t0 = time.perf_counter()
+    occ_c, grids_c = slam.render_ogm(cfg, res, frames, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    d_occ = float(np.abs(occ - occ_c).max())
+    o = cfg.ogm
+    print(f"OGM: render_ogm on the full-SLAM result ({n_nodes} nodes, "
+          f"{res.odometry.n_submaps} submaps of {o.submap_size_y}x{o.submap_size_x} "
+          f"int32 cells, global {o.size_y}x{o.size_x} at {o.resolution} m): card "
+          f"{cold:.3f} s cold, {steady:.3f} s steady; peak device memory "
+          f"{peak / 2**30:.3f} GiB ({resident / 2**30:.3f} GiB resident before); "
+          f"launches {launches}; counts {int(grids.min())}..{int(grids.max())}, "
+          f"{int((grids != 0).sum())} cells touched, {int((occ >= 0).sum())} global "
+          f"cells known; two card runs bitwise equal; CPU run {cpu_s:.2f} s: counting "
+          f"grids {'bitwise equal' if np.array_equal(grids, grids_c) else 'DIFFER'}, "
+          f"occupancy within {d_occ:.2e}", flush=True)
+    if grids.shape != (res.odometry.n_submaps, o.submap_size_y, o.submap_size_x):
+        raise AssertionError(f"counting grids of shape {grids.shape}")
+    if not (grids.min() < 0 and grids.max() >= 2 and np.isfinite(occ).all()):
+        raise AssertionError("render_ogm: no free-space or hit counts, or a non-finite cell")
+    if not (np.array_equal(grids, grids_c) and d_occ <= 1e-5):
+        raise AssertionError("render_ogm: the card's grids differ from the CPU's")
+    return launches["row_windows"]
 
 
 def main() -> int:
@@ -1239,12 +1472,23 @@ def main() -> int:
 
     # ---- 7. full SLAM --------------------------------------------------------
     t_phase = time.perf_counter()
-    slam_launches = slam_phase(cfg_on, dev)
+    slam_launches, slam_res, slam_frames = slam_phase(cfg_on, dev)
     for n in ("row_windows", "segment_topk_moments", "ndt_linearize",
               "ndt_robust_cost", "chol_solve"):
         if slam_launches[n] == 0:
             raise AssertionError(f"full SLAM launched no {n}")
     slam_s = time.perf_counter() - t_phase
+
+    # ---- 8. the occupancy grid of that run ------------------------------------
+    t_phase = time.perf_counter()
+    ogm_k1 = ogm_phase(cfg_on, slam_res, slam_frames, dev)
+    del slam_res, slam_frames
+    ogm_s = time.perf_counter() - t_phase
+
+    # ---- 9. the Schur-complement pose graph at a full sequence's size -----
+    t_phase = time.perf_counter()
+    schur_phase(dev, smi)
+    schur_s = time.perf_counter() - t_phase
 
     def record(n, source, replaces, launches, measured):
         return dict(name=n, route="cuda", source="randt_slam_torch/csrc/" + source,
@@ -1253,7 +1497,7 @@ def main() -> int:
 
     rows = [
         record("row_windows", "window_slice.cu", "window_slice.py:49",
-               launches["off"]["row_windows"], k1),
+               launches["off"]["row_windows"], dict(k1, ogm_launches=ogm_k1)),
         record("segment_topk_moments", "segment_moments.cu", "segment_moments.py:154",
                launches["off"]["segment_topk_moments"], k2),
         record("segment_moments", "segment_sum.cu", "segment_moments.py:81",
@@ -1267,7 +1511,8 @@ def main() -> int:
     ]
     print(f"chip_smoke: passed in {time.perf_counter() - t_start:.1f} s wall (set-up "
           f"{setup_s:.1f} s, kernels and odometry {odometry_s:.1f} s, K5 {k5_s:.1f} s, "
-          f"full SLAM {slam_s:.1f} s)", flush=True)
+          f"full SLAM {slam_s:.1f} s, OGM {ogm_s:.1f} s, Schur {schur_s:.1f} s)",
+          flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

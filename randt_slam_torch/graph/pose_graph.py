@@ -140,11 +140,9 @@ def robust_weight(r, id_begin, id_end, scale, spec):
     return w
 
 
-def _assemble(poses, g: PoseGraph, robust, huber_scale: float):
-    """(H (3N, 3N), grad (3N,), cost) of the weighted edges.  The four 3x3
-    blocks of every edge are scattered in the JAX package's order (all
-    (a, a) blocks, then (a, b), (b, a), (b, b)) by one index_add."""
-    N = poses.shape[0]
+def edge_blocks(poses, g: PoseGraph, robust, huber_scale: float):
+    """Per-edge weighted normal-equation blocks (Haa, Hab, Hbb (E, 3, 3),
+    ga, gb (E, 3)), the IRLS weights w (E,) and the residuals r (E, 3)."""
     r = edge_residuals(poses, g)
     Ja, Jb = _edge_jacobians(poses, g)
     w = g.valid.to(poses.dtype)
@@ -152,11 +150,19 @@ def _assemble(poses, g: PoseGraph, robust, huber_scale: float):
         w = w * robust_weight(r, g.id_begin, g.id_end, huber_scale, robust)
     Wa = Ja * w[:, None, None]
     Wb = Jb * w[:, None, None]
-    Haa = torch.einsum("eij,eik->ejk", Wa, Ja)
-    Hab = torch.einsum("eij,eik->ejk", Wa, Jb)
-    Hbb = torch.einsum("eij,eik->ejk", Wb, Jb)
-    ga = torch.einsum("eij,ei->ej", Wa, r)
-    gb = torch.einsum("eij,ei->ej", Wb, r)
+    return (torch.einsum("eij,eik->ejk", Wa, Ja),
+            torch.einsum("eij,eik->ejk", Wa, Jb),
+            torch.einsum("eij,eik->ejk", Wb, Jb),
+            torch.einsum("eij,ei->ej", Wa, r),
+            torch.einsum("eij,ei->ej", Wb, r), w, r)
+
+
+def _assemble(poses, g: PoseGraph, robust, huber_scale: float):
+    """(H (3N, 3N), grad (3N,), cost) of the weighted edges.  The four 3x3
+    blocks of every edge are scattered in the JAX package's order (all
+    (a, a) blocks, then (a, b), (b, a), (b, b)) by one index_add."""
+    N = poses.shape[0]
+    Haa, Hab, Hbb, ga, gb, w, r = edge_blocks(poses, g, robust, huber_scale)
 
     ia, ib = g.id_begin.long(), g.id_end.long()
     k3 = torch.arange(3, device=poses.device)

@@ -14,7 +14,8 @@ C. one pose-graph solve (``graph/schur.optimize_auto``) and the submap
 
 :func:`run_slam` runs all three.  The frames live on the device for the
 whole run and the odometry step never waits on it; its outputs are fetched
-once, after the last frame.  ``render_ogm`` is not ported yet.
+once, after the last frame.  :func:`render_ogm` makes the occupancy grid of
+a finished run.
 """
 
 from __future__ import annotations
@@ -296,3 +297,76 @@ def run_slam(cfg: SlamConfig, frames: F.Frame, sensor_to_base=None,
         node_stamp=odo.node_stamp, node_frame=odo.node_frame,
         submap_origin_optimized=origin, pgo_cost=float(info["cost"]),
         pgo_iterations=int(info["iterations"]), timings=timings)
+
+
+@torch.profiler.record_function("randt.ogm")
+def render_ogm(cfg: SlamConfig, result: SlamResult, frames: F.Frame,
+               sensor_to_base=None, device=None):
+    """Occupancy-grid post-pass (``raytrace`` + ``visualizeMap`` timers,
+    ``ndt_slam.cpp:366-368,308-348``) on ``device`` (CUDA unless
+    ``device="cpu"``): re-extract every keyframe node's max-intensity beams
+    (one ``preprocess.filter_scan``, so one K1 launch, per node), raytrace
+    them into per-submap counting grids at the odometry-time sensor poses,
+    fuse the grids into the global OGM at the optimized submap origins, and
+    apply the smoothstep occupancy mapping.
+
+    Returns (global occupancy (gh, gw) float32, counting grids (NS, sh, sw)
+    int32) as numpy.  The JAX package counts on the host through its native
+    C++ and keeps its device trace as the fallback; here the device trace is
+    the path.  A submap's beams are traced in chunks
+    (``raytrace.CHUNK_ELEMENTS``).
+    """
+    from .. import preprocess as pp
+    from ..mapping import ogm as OGM
+    from ..mapping import raytrace as RT
+
+    dev = runtime.resolve_device(device)
+    dtype = torch.float32
+    s2b = torch.zeros(3, dtype=dtype, device=dev) if sensor_to_base is None else (
+        torch.as_tensor(np.asarray(sensor_to_base, np.float32)).to(dev))
+    odo = result.odometry
+    o = cfg.ogm
+    sh, sw = o.submap_size_y, o.submap_size_x
+    n_sub = odo.n_submaps
+
+    beams, masks = [], []
+    for f in np.asarray(odo.node_frame, np.int64):
+        scan = pp.PolarScan(
+            intensity=frames.intensity[f].to(dev).to(dtype),
+            azimuths=frames.azimuths[f].to(dev), ranges=frames.ranges[f].to(dev),
+            azimuth_mask=frames.azimuth_mask[f].to(dev))
+        filt = pp.filter_scan(scan, cfg.preprocessor, s2b)
+        beams.append(filt.beams)
+        masks.append(filt.beam_mask)
+    beams = torch.stack(beams) if beams else torch.zeros(0, 1, 3, device=dev)
+    masks = torch.stack(masks) if masks else torch.zeros(0, 1, dtype=torch.bool,
+                                                          device=dev)
+
+    # sensor poses in each node's submap frame (odometry-time geometry)
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+
+    origins = put(odo.submap_origin[np.asarray(odo.node_submap)])
+    local = OGM.compose(OGM.inverse(origins), put(odo.node_pose))
+    sensor_pose = OGM.compose(local, s2b.expand_as(local))
+
+    A = beams.shape[1]
+    max_steps = min(2048, 2 * int(cfg.preprocessor.max_range / o.resolution))
+    node_sub = torch.from_numpy(np.asarray(odo.node_submap, np.int64)).to(dev)
+    grids = torch.zeros(n_sub, sh, sw, dtype=torch.int32, device=dev)
+    for s in range(n_sub):
+        sel = torch.nonzero(node_sub == s).reshape(-1)
+        grids[s] = RT.raytrace_beams(
+            grids[s], torch.repeat_interleave(sensor_pose[sel], A, dim=0),
+            beams[sel].reshape(-1, 3), masks[sel].reshape(-1), o.resolution,
+            max_steps=max_steps)
+
+    # fuse at the optimized origins; corner offset = -size/2 * res
+    corner = put([-0.5 * sw * o.resolution, -0.5 * sh * o.resolution, 0.0])
+    sub_corners = OGM.compose(put(result.submap_origin_optimized[:n_sub]),
+                              corner.expand(n_sub, 3))
+    g_corner = put([-0.5 * o.size_x * o.resolution,
+                    -0.5 * o.size_y * o.resolution, 0.0])
+    total = OGM.fuse_submaps(grids, sub_corners, o.resolution, o.resolution,
+                             g_corner, o.size_y, o.size_x)
+    return (OGM.global_occupancy(total).cpu().numpy(), grids.cpu().numpy())

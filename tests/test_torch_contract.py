@@ -5,7 +5,9 @@
 * Entry points run on CUDA unless asked for the CPU: with no device and no
   CUDA they raise instead of dropping to the CPU.
 * Its configuration presets equal the JAX package's field by field.
-* The CLI runs full SLAM and odometry and refuses what later slices bring.
+* The CLI runs full SLAM and odometry, writes the OGM, the NDT export, the
+  map view and ``trajectory.json``, reads a reference YAML, and refuses what
+  later slices bring.
 """
 
 import ast
@@ -142,8 +144,67 @@ def test_cli_full_slam(tmp_path):
         assert m["timings"][k] >= 0.0, k
 
 
-@pytest.mark.parametrize("extra", [["--ogm"], ["--online"], ["--checkpoint", "ck"],
-                                   ["--odometry-only", "--render"]])
+def _cli(tmp_path, *extra, frames=12):
+    out = tmp_path / "run"
+    cmd = [sys.executable, "-m", "randt_slam_torch.run", "--input", "synthetic",
+           "--config", "synthetic", "--frames", str(frames), "--device", "cpu",
+           "--output", str(out), *extra]
+    env = dict(os.environ, OMP_NUM_THREADS="1")  # small eager ops: one thread
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return out, json.loads((out / "metrics.json").read_text())
+
+
+def test_cli_ogm_and_ndt_export(tmp_path):
+    out, m = _cli(tmp_path, "--loop", "--ogm", "--export-ndt")
+    cfg = tcfg.synthetic_config().ogm
+    pgm = (out / "ogm.pgm").read_bytes()
+    header = f"P5\n{cfg.size_x} {cfg.size_y}\n255\n".encode()
+    assert pgm.startswith(header) and len(pgm) == len(header) + cfg.size_x * cfg.size_y
+    img = np.frombuffer(pgm[len(header):], np.uint8)
+    assert (img == 127).any() and (img != 127).any()  # unknown and mapped cells
+    ndt = np.load(out / "ndt_submap.npz")
+    assert len(ndt["mean_x"]) > 0 and np.isfinite(ndt["cov_xx"]).all()
+    traj = json.loads((out / "trajectory.json").read_text())
+    assert len(traj) == m["n_nodes"] and set(traj[0]) == {"stamp", "x", "y", "yaw"}
+    assert m["timings"]["ogm_s"] >= 0.0
+
+
+def test_cli_render(tmp_path):
+    pytest.importorskip("matplotlib")
+    out, _ = _cli(tmp_path, "--odometry-only", "--render", frames=6)
+    assert (out / "map.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    assert (out / "trajectory.json").exists()
+
+
+def test_cli_ref_yaml(tmp_path):
+    """``--ref-yaml`` takes the reference's layered YAML in place of the
+    preset, as the JAX CLI does (the YAML of
+    ``tests/test_reference_yaml.py``'s cascade test)."""
+    from randt_slam_tpu import run as jrun
+    from randt_slam_torch import run as trun
+
+    p = tmp_path / "min.yaml"
+    p.write_text(
+        "ndt_matcher:\n"
+        "  gnc_steps: 7\n"
+        "  loss_function_scale: 2.5\n"
+        "  use_intensity_as_dimension: false\n"
+        "ndt_map:\n"
+        "  size_x: 70\n  size_y: 70\n  resolution: 2.0\n"
+    )
+    argv = ["--input", "synthetic", "--output", str(tmp_path), "--ref-yaml", str(p)]
+    cfg = trun.load_config(trun.build_parser().parse_args(argv))
+    assert cfg == tcfg.from_reference_yaml(str(p))
+    assert cfg.ndt_map.size_x == 35 and cfg.matcher.gnc_steps == 7
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        jrun.load_config(jrun.build_parser().parse_args(argv)))
+    out, m = _cli(tmp_path, "--odometry-only", "--ref-yaml", str(p), frames=6)
+    assert m["frames"] == 6 and np.isfinite(m["odom_ate_m"])
+
+
+@pytest.mark.parametrize("extra", [["--online"], ["--checkpoint", "ck"]])
 def test_cli_refuses_later_slices(tmp_path, extra):
     cmd = [sys.executable, "-m", "randt_slam_torch.run", "--input", "synthetic",
            "--device", "cpu", "--output", str(tmp_path / "x"), *extra]

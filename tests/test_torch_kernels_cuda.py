@@ -45,6 +45,15 @@ PyTorch is installed:
 * Full SLAM on the CPU tests' loop sequence: loop closure and the pose
   graph on the CPU from the card's odometry give the card's tables, with
   the free-running edges and CS values inside ``chip_smoke.py``'s band.
+* The Schur-complement pose graph on the card, on the CPU Schur tests'
+  graphs (a numpy copy of ``tests/test_schur.py::_slam_graph``) and
+  ``bench.py``'s at 77 nodes: the Schur route, within 1e-4 (m, rad) plus
+  1e-5 of the pose's size of the CPU's solve (the CPU tests' tolerance
+  against the JAX package: float order only), two card runs bitwise equal.
+* ``render_ogm`` on the card from a short card odometry run: K1 once per
+  keyframe node and no other kernel; counting grids bitwise equal to the
+  CPU's from the same tables, the occupancy within 1e-5; two card runs
+  bitwise equal.
 """
 
 import numpy as np
@@ -484,3 +493,151 @@ def test_loop_closure_card_against_cpu(dev):
     assert de[:, :2].max() <= LOOP_EDGE_BAND[0] and de[:, 2].max() <= LOOP_EDGE_BAND[1]
     assert dp[:, :2].max() <= FREE_POSE_BAND[0] and dp[:, 2].max() <= FREE_POSE_BAND[1]
     assert dq[:, :2].max() <= 1e-3 and dq[:, 2].max() <= 1e-4
+
+
+def _slam_graph(seed=0, n_submaps=6, nodes_per=10, n_loops=4):
+    """numpy copy of ``tests/test_schur.py::_slam_graph`` (that module
+    imports JAX): a noisy circular drive split into submaps, loop edges from
+    roots to interior nodes of other submaps."""
+    rng = np.random.default_rng(seed)
+    N = n_submaps * nodes_per
+    t = np.linspace(0, 2 * np.pi, N, endpoint=False)
+    gt = np.stack([30 * np.cos(t), 30 * np.sin(t), t + np.pi / 2], 1)
+    noisy = gt + np.concatenate(
+        [np.zeros((1, 3)), np.cumsum(rng.normal(0, 0.02, (N - 1, 3)), 0)])
+    node_submap = np.repeat(np.arange(n_submaps), nodes_per)
+    node_is_root = np.zeros(N, bool)
+    node_is_root[::nodes_per] = True
+
+    def rel(a, b):
+        c, s = np.cos(a[2]), np.sin(a[2])
+        d = b - a
+        return np.array([c * d[0] + s * d[1], -s * d[0] + c * d[1],
+                         np.arctan2(np.sin(d[2]), np.cos(d[2]))])
+
+    eb, ee = list(range(N - 1)), list(range(1, N))
+    trans = [rel(gt[i], gt[i + 1]) for i in range(N - 1)]
+    roots = np.nonzero(node_is_root)[0]
+    for k in range(n_loops):
+        m = roots[k % n_submaps]
+        q = int(rng.integers(0, N))
+        if node_is_root[q] or node_submap[q] == node_submap[m]:
+            q = (m + nodes_per + 3) % N
+            if node_is_root[q]:
+                q += 1
+        eb.append(int(m))
+        ee.append(int(q))
+        trans.append(rel(gt[m], gt[q]))
+    sqrt_i = np.tile(np.diag([10.0, 10.0, 20.0]), (len(eb), 1, 1))
+    return (noisy.astype(np.float32), np.asarray(eb), np.asarray(ee),
+            np.stack(trans).astype(np.float32), sqrt_i.astype(np.float32),
+            node_submap, node_is_root)
+
+
+SCHUR_GRAPHS = {
+    "slam": {},
+    "sharded": dict(n_submaps=8, nodes_per=12, n_loops=6),
+    "single_node_submaps": dict(n_submaps=4, nodes_per=1, n_loops=0),
+    "many_loops": dict(seed=1, n_submaps=3, nodes_per=25, n_loops=8),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SCHUR_GRAPHS) + ["bench_77"])
+def test_schur_card_against_cpu(dev, name):
+    from chip_smoke import bench_graph, se2_gap
+    from randt_slam_torch.config import GlobalFuserConfig
+    from randt_slam_torch.graph import pose_graph as PG
+    from randt_slam_torch.graph import schur
+
+    if name == "bench_77":
+        graph = bench_graph(77)[:7]
+    else:
+        graph = _slam_graph(**SCHUR_GRAPHS[name])
+    poses, eb, ee, trans, sqrt_i, node_submap, node_is_root = graph
+
+    def solve(device):
+        g = PG.PoseGraph(*(torch.from_numpy(x).to(device) for x in
+                           (poses, eb, ee, trans, sqrt_i)),
+                         torch.ones(len(eb), dtype=torch.bool, device=device))
+        p, info = schur.optimize_auto(g, GlobalFuserConfig(), node_submap=node_submap,
+                                      node_is_root=node_is_root, dense_node_limit=1)
+        assert info["solver"] == "schur" and info["two_stage"]
+        return p.cpu().numpy()
+
+    card, again, cpu = solve(dev), solve(dev), solve("cpu")
+    assert np.array_equal(card, again)
+    d = np.abs(card.astype(np.float64) - cpu)
+    d[:, 2] = np.abs(np.arctan2(np.sin(card[:, 2] - cpu[:, 2]),
+                                np.cos(card[:, 2] - cpu[:, 2])))
+    print(f"{name}: Schur card against CPU {se2_gap(card, cpu)}")
+    assert np.all(d <= 1e-4 + 1e-5 * np.abs(cpu))
+
+
+@pytest.mark.cuda
+def test_render_ogm_card_against_cpu(dev):
+    from randt_slam_torch.config import synthetic_config
+    from randt_slam_torch.io import synthetic
+    from randt_slam_torch.pipeline import slam
+
+    cfg = synthetic_config()
+    seq = synthetic.generate(seed=7, n_frames=40, n_azimuths=256, n_bins=256,
+                             speed=4.0, dt=0.25, loop=True, n_walls=80)
+    frames = slam.frames_from_arrays(seq.intensity, seq.azimuths, seq.ranges,
+                                     seq.stamps, device=dev)
+    odo = slam.run_odometry(cfg, frames, device=dev)
+    n = odo.n_submaps
+    opt = odo.submap_origin.copy()
+    opt[:n] += np.random.default_rng(0).normal(0, 0.3, (n, 3)).astype(np.float32)
+    res = slam.SlamResult(odometry=odo, loops=None, node_pose_optimized=odo.node_pose,
+                          node_stamp=odo.node_stamp, node_frame=odo.node_frame,
+                          submap_origin_optimized=opt, pgo_cost=0.0, pgo_iterations=0)
+    build.reset_launches()
+    occ, grids = slam.render_ogm(cfg, res, frames, device=dev)
+    launches = dict(build.LAUNCHES)
+    assert launches == {k: (len(odo.node_id) if k == "row_windows" else 0)
+                        for k in launches}
+    occ2, grids2 = slam.render_ogm(cfg, res, frames, device=dev)
+    occ_c, grids_c = slam.render_ogm(cfg, res, frames, device="cpu")
+    assert np.array_equal(grids, grids2) and np.array_equal(occ, occ2)
+    assert np.array_equal(grids, grids_c)
+    assert np.abs(occ - occ_c).max() <= 1e-5
+    assert grids.min() < 0 and grids.max() >= 2
+
+
+@pytest.mark.cuda
+def test_ogm_scatters_under_deterministic_algorithms(dev):
+    """The OGM's scatters, the integer ``index_add_`` of ``raytrace_beams``
+    and the ``scatter_reduce_`` max pair of ``fuse_submaps``, are allowed
+    under ``torch.use_deterministic_algorithms(True)`` on CUDA and give the
+    grids they give without it (integers, and maxima: exact in any order)."""
+    from randt_slam_torch.mapping import ogm, raytrace
+
+    rng = np.random.default_rng(5)
+    n = 4000
+    poses = np.zeros((n, 3), np.float32)
+    poses[:, :2] = rng.uniform(-20, 20, (n, 2))
+    poses[:, 2] = rng.uniform(-np.pi, np.pi, n)
+    beams = np.stack([rng.uniform(-np.pi, np.pi, n), rng.uniform(0, 30, n),
+                      np.zeros(n)], 1).astype(np.float32)
+    args = (torch.zeros(300, 400, dtype=torch.int32, device=dev),
+            torch.from_numpy(poses).to(dev), torch.from_numpy(beams).to(dev),
+            torch.ones(n, dtype=torch.bool, device=dev), 0.1)
+    origins = torch.tensor([[1.0, -2.0, 0.3], [-3.0, 0.5, -1.2]], device=dev)
+
+    def run():
+        grid = raytrace.raytrace_beams(*args, max_steps=600)
+        total = ogm.fuse_submaps(torch.stack([grid, grid.flip(0)]), origins, 0.1, 0.1,
+                                 torch.tensor([-25.0, -20.0, 0.1], device=dev), 450, 500)
+        torch.cuda.synchronize()
+        return grid, total
+
+    grid, total = run()
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        grid_d, total_d = run()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert torch.equal(grid, grid_d) and torch.equal(total, total_d)
+    assert int(grid.min()) < 0 and float(total.abs().max()) > 0

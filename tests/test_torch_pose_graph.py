@@ -110,15 +110,20 @@ def test_optimize_auto_two_stage_matches_jax(shipped):
 
 def test_optimize_auto_raises_where_the_jax_package_takes_schur(circle):
     """Above the dense limit with submap structure the JAX package routes to
-    its Schur complement; the port has none yet and must not solve densely
-    instead.  Without submap structure it stays dense on both sides."""
+    its Schur complement, and so does the port (it raised here before the
+    Schur route was ported; the name is kept): the same route and poses.
+    Without submap structure it stays dense on both sides."""
     jg, tg = circle
     n = tg.poses.shape[0]
     node_submap = np.arange(n) // 10
     node_is_root = np.arange(n) % 10 == 0
-    with pytest.raises(NotImplementedError, match="Schur"):
-        tschur.optimize_auto(tg, tGFC(), node_submap=node_submap,
-                             node_is_root=node_is_root, dense_node_limit=n - 1)
+    kw = dict(node_submap=node_submap, node_is_root=node_is_root,
+              dense_node_limit=n - 1)
+    tp, tinfo = tschur.optimize_auto(tg, tGFC(), **kw)
+    jp, jinfo = jschur.optimize_auto(jg, jGFC(), **kw)
+    assert tinfo["solver"] == jinfo["solver"] == "schur"
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=0,
+                               atol=TWO_STAGE_TOL)
     tp, tinfo = tschur.optimize_auto(tg, tGFC(), dense_node_limit=n - 1)
     jp, jinfo = jschur.optimize_auto(jg, jGFC(), dense_node_limit=n - 1)
     assert tinfo["solver"] == jinfo["solver"] == "dense"

@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Three paths of the port run at the Oxford configuration, and two modules
-after them: offline odometry with the kernel switches off
+Four paths of the port run at the Oxford configuration, and two modules
+between them: offline odometry with the kernel switches off
 (``oxford_config()``: the scan kernels K1 and K2, the LM loop in autograd
 and ``solve_ex``) and on
 (``use_pallas_linearize`` and ``use_pallas_chol``: also the fused
@@ -11,8 +11,10 @@ linearize/cost kernels K3a/K3b and the Cholesky kernel K4 in the LM loop),
 and full offline SLAM (``run_slam``: odometry with the switches on,
 ScanContext loop closure with the CS gate, the pose graph), then the
 occupancy grid of that SLAM run and the Schur-complement pose graph at a
-full sequence's size.  The full segment sum K5 has no pipeline caller; its
-entry point is ``ndt/cells.from_points``.
+full sequence's size, and last online SLAM (``OnlineSlam``: the same front
+end with loop search, the pose graph re-anchoring the active submap and
+raytracing on their cadences, checkpoint and resume).  The full segment
+sum K5 has no pipeline caller; its entry point is ``ndt/cells.from_points``.
 
 Phases (any failed check raises and the script exits non-zero):
 
@@ -36,7 +38,7 @@ Phases (any failed check raises and the script exits non-zero):
    and K1's, K2's, K3a's, K3b's, K4's and K5's times in their earlier
    designs (PERF.md);
 4. per odometry path, ``run_odometry`` over rendered frames of that
-   geometry (80 with the switches on, 40 off): exact launch counts (K1 and K2 once per frame; per
+   geometry (80 with the switches on, 30 off): exact launch counts (K1 and K2 once per frame; per
    ``estimate_window`` call K3a and K4 gnc_steps x lm_max_iterations times
    and K3b
    2 + gnc_steps x (1 + lm_max_iterations) times on the switches-on path,
@@ -83,7 +85,25 @@ Phases (any failed check raises and the script exits non-zero):
    and to the Schur route on the CPU within ``SCHUR_BAND``; the steady
    call's wall ms, iterations and ms per iteration, the
    ``max_iterations=10`` figure ``bench.py`` reports, and a profile of that
-   call (device busy share, launches per iteration, top kernels).
+   call (device busy share, launches per iteration, top kernels);
+10. online SLAM: ``OnlineSlam`` over the first 200 frames of phase 7's
+   drive (switches on, default cadences: loop search every 5 frames, pose
+   graph every 20; the online OGM on), then ``finalize`` and
+   ``render_ogm``: exact launches (K1 and K2 once per frame; K3a/K3b/K4
+   per window solve as in phase 4; none in the loop cadences or in any
+   refinement; no K5); at least one accepted loop edge and one mid-run
+   pose-graph tick with loop edges that moves the active submap's origin;
+   finite poses; post-PGO node ATE no worse than 1.05 x the node ATE as
+   odometry emitted the nodes; the odometry trace bitwise equal to phase
+   7's on every frame before the first re-anchoring; steady ms/frame
+   beside phase 7's odometry, stage medians, candidates refined, peak
+   device memory.  A checkpoint after frame 178 (its size, save and load
+   seconds): a fresh engine resumes it on the card to the end, bitwise
+   equal to the uninterrupted run (odometry, trajectory, edges, counting
+   grids; K1 and K2 once more per restored-frame node), and one cadence
+   from it on the CPU and on the card gives the same candidates and edges,
+   refined edges and CS within the bands below and optimized poses within
+   1e-3 m / 1e-4 rad.
 
 The second-to-last line of the output is the kernels' JSON record, the last
 line ``{"ok": true, "device": {...}}``.
@@ -105,14 +125,20 @@ BIN_W = 0.0864          # m: Oxford bins after the 2x downsampling of io/oxford
 MAX_RANGE = 100.0
 # odometry main runs per switch setting (the switches-off path, the earlier
 # and slower one, is cut deeper to keep the script inside its time on a slow
-# host; full SLAM drives the switches-on path over 240 frames)
-N_FRAMES = {"on": 80, "off": 40}
+# host: 40 frames until online SLAM joined; full SLAM drives the switches-on
+# path over 240 frames)
+N_FRAMES = {"on": 80, "off": 30}
 N_SHORT = 20
 # the odometry drive as rendered since PR 1 (its trajectory depends on its
 # length): the runs take its first frames, the kernel checks its middle frame
 N_RENDER = 160
 N_LOOP = 240            # full-SLAM drive: 1.5 laps of a 160 m loop
 LOOP_LAPS = 1.5
+# online SLAM (phase 10): the first frames of that drive (revisits start near
+# frame 160), and the frame count after which a checkpoint is taken (not a
+# cadence multiple, so loop queries are pending)
+N_ONLINE = 200
+ONLINE_SAVE_AT = 178
 ATE_BAND_M = 0.25       # odometry ATE over the main runs (40-80 m driven)
 # free-running loop closure on the CPU against the card's, from one odometry
 # result: refined edges (m, rad) and CS divergences (relative); twice the
@@ -1018,7 +1044,7 @@ def gate_from_identical_inputs(cfg, odo, frames, loops, dev):
 
 def slam_phase(cfg, dev):
     """Phase 7: full SLAM over a looping drive; returns the run's launch
-    counts, its result and its frames."""
+    counts, its result, its frames and their ground truth."""
     import torch
 
     from randt_slam_torch.io import formats
@@ -1177,7 +1203,7 @@ def slam_phase(cfg, dev):
                "randt.pgo"} - set(layers)
     if missing:
         raise AssertionError(f"profile: ranges {sorted(missing)} not seen")
-    return launches, res, frames
+    return launches, res, frames, gt
 
 
 def se2_gap(a, b):
@@ -1348,6 +1374,219 @@ def ogm_phase(cfg, res, frames, dev):
     return launches["row_windows"]
 
 
+def se2_gap_free(a, b):
+    """se2_gap of two pose arrays that may be empty."""
+    return se2_gap(a, b) if len(a) else (0.0, 0.0)
+
+
+def online_phase(cfg, res, frames, gt, dev, smi):
+    """Phase 10: ``OnlineSlam`` over the first N_ONLINE frames of phase 7's
+    drive (switches on, default cadences, online OGM), then ``finalize`` and
+    ``render_ogm``; a checkpoint after ONLINE_SAVE_AT frames resumed on the
+    card and, for one cadence, on the CPU.  Returns the main run's launch
+    counts."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+
+    from randt_slam_torch.io import formats
+    from randt_slam_torch.ops import build
+    from randt_slam_torch.pipeline import frontend as F
+    from randt_slam_torch.pipeline.online import OnlineSlam
+
+    cfg = dataclasses.replace(cfg, visualize_ogm=True)
+    n = N_ONLINE
+
+    def frame(t):
+        return F.Frame(*(x[t] for x in frames))
+
+    eng = OnlineSlam(cfg, device=dev)
+    # watched on the instance: the pose-graph ticks (loop edges, whether the
+    # active submap's origin moved), the launches of the loop cadences and of
+    # each refinement, and every node pose as odometry emitted it
+    ticks, cadence_launches, refine_launches, emitted = [], [], [], []
+    tick, detect, refine, record_out = (eng.optimize_pose_graph, eng.detect_loops,
+                                        eng._refine_and_gate, eng._record_outputs)
+
+    def watched_tick(final=False):
+        before, loops = eng.carry.submap_origin.clone(), eng.n_loop_edges
+        t0 = time.perf_counter()
+        tick(final)
+        ticks.append(dict(frame=eng._frame_count, loops=loops, final=final,
+                          moved=not torch.equal(before, eng.carry.submap_origin),
+                          s=time.perf_counter() - t0))
+
+    def launches_of(fn, into):
+        def run(*a, **kw):
+            before = dict(build.LAUNCHES)
+            out = fn(*a, **kw)
+            into.append(sum(build.LAUNCHES[k] - before[k] for k in before))
+            return out
+        return run
+
+    def watched_record(out, h):
+        record_out(out, h)
+        emitted.extend(np.array(p) for p in eng.node_pose[len(emitted):])
+
+    eng.optimize_pose_graph = watched_tick
+    eng.detect_loops = launches_of(detect, cadence_launches)
+    eng._refine_and_gate = launches_of(refine, refine_launches)
+    eng._record_outputs = watched_record
+    ck = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"), "online.npz")
+    print(f"host before online SLAM: {host_cpu()}", flush=True)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    with counting_solves() as solves:
+        build.reset_launches()
+        t0 = time.perf_counter()
+        marks = []
+        for t in range(n):
+            if t == ONLINE_SAVE_AT:
+                t_save = time.perf_counter()
+                eng.save_checkpoint(ck)
+                save_s = time.perf_counter() - t_save
+                pending = list(eng._pending_loop_queries)
+                saved_nodes = len(eng.node_pose)
+            marks.append(time.perf_counter())
+            eng.process_frame(frame(t))
+        t_end = time.perf_counter()
+        eng.finalize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = expected_launches(cfg, n, solves[0])
+    if launches != want:
+        raise AssertionError(f"online SLAM launched {launches} over {n} frames and "
+                             f"{solves[0]} window solves, expected {want}")
+    if any(cadence_launches) or any(refine_launches):
+        raise AssertionError(f"online loop cadences launched {cadence_launches} "
+                             f"(refinements {refine_launches}), expected none")
+    steady_ms = ((t_end - marks[N_SHORT]) - save_s) / (n - N_SHORT) * 1e3
+    odo_ms = res.timings["odometry_s"] / N_LOOP * 1e3
+    odom = np.stack(eng.odom_trace)
+    traj = eng.trajectory()
+    if not (np.all(np.isfinite(odom)) and np.all(np.isfinite(traj))):
+        raise AssertionError("online SLAM: poses are not finite")
+    if eng.n_loop_edges < 1:
+        raise AssertionError("online SLAM: no loop edge accepted")
+    mid = [k for k in ticks if not k["final"] and k["loops"] > 0]
+    anchor = [k for k in mid if k["moved"]]
+    if not anchor:
+        raise AssertionError(f"online SLAM: no mid-run tick with loop edges moved the "
+                             f"active submap's origin ({ticks})")
+    # before the first re-anchoring the online odometry is phase 7's, bitwise
+    first = anchor[0]["frame"]
+    prefix = res.odometry.odom_poses[:first]
+    if not np.array_equal(odom[:first], prefix):
+        bad = int(np.argmax(np.any(odom[:first] != prefix, axis=1)))
+        raise AssertionError(f"online odometry differs from phase 7's at frame {bad} "
+                             f"(first re-anchoring after frame {first})")
+    node_gt = gt[np.asarray(eng.node_frame)]
+    ate_odo = formats.ate(np.stack(emitted), node_gt)
+    ate_pgo = formats.ate(traj, node_gt)
+    if not ate_pgo <= 1.05 * ate_odo:
+        raise AssertionError(f"online post-PGO node ATE {ate_pgo:.4f} m above 1.05 x "
+                             f"odometry {ate_odo:.4f} m")
+    med = {k: float(np.median(v)) * 1e3 if v else float("nan")
+           for k, v in eng.stage_walls.items()}
+    accepted = sum(1 for x in eng.loop_trace if x[-1])
+    print(f"online SLAM on {smi}: {n} frames + finalize in {wall:.2f} s; steady "
+          f"(frames {N_SHORT}..{n - 1}, the checkpoint save taken out) {steady_ms:.1f} "
+          f"ms/frame, beside phase 7's odometry {odo_ms:.1f} ms/frame in this call; "
+          f"stage medians step {med['step']:.1f}, record {med['record']:.1f}, loops "
+          f"{med['loops']:.1f}, pgo {med['pgo']:.1f} ms ({len(eng.stage_walls['loops'])} "
+          f"loop cadences, {len(eng.stage_walls['pgo'])} pose-graph cadences); loop "
+          f"candidates refined {len(eng.loop_trace)}, accepted {accepted} "
+          f"(loop edges {eng.n_loop_edges}); {len(traj)} nodes, "
+          f"{len(eng._count_grids)} counting grids; launches {launches} "
+          f"({solves[0]} window solves; loop cadences and refinements none); peak "
+          f"device memory {peak / 2**30:.3f} GiB ({resident / 2**30:.3f} GiB resident "
+          f"before)", flush=True)
+    print(f"host after online SLAM: {host_cpu()}", flush=True)
+    print(f"online SLAM: pose-graph ticks {[(k['frame'], k['loops'], k['moved'], round(k['s'], 3)) for k in ticks]} "
+          f"(frame count, loop edges, origin moved, s); first re-anchoring after "
+          f"frame {first}: odometry bitwise phase 7's on frames 0..{first - 1}; node "
+          f"ATE odometry {ate_odo:.4f} m, after finalize {ate_pgo:.4f} m (limit 1.05 x); "
+          f"per-frame odometry ATE {formats.ate(odom, gt[:n]):.4f} m", flush=True)
+    t0 = time.perf_counter()
+    occ = eng.render_ogm()
+    render_s = time.perf_counter() - t0
+    grids = [g.cpu().numpy() for g in eng._count_grids.values()]
+    if not (np.isfinite(occ).all() and min(g.min() for g in grids) < 0
+            and max(g.max() for g in grids) >= 2 and (occ >= 0).any()):
+        raise AssertionError("online render_ogm: no free-space or hit counts, or a "
+                             "non-finite cell")
+
+    # ---- resume on the card from the checkpoint -------------------------------
+    size_mb = os.path.getsize(ck) / 2**20
+    again = OnlineSlam(cfg, device=dev)
+    t0 = time.perf_counter()
+    again.load_checkpoint(ck)
+    load_s = time.perf_counter() - t0
+    with counting_solves() as solves2:
+        build.reset_launches()
+        for t in range(ONLINE_SAVE_AT, n):
+            again.process_frame(frame(t))
+        again.finalize()
+        launches2 = dict(build.LAUNCHES)
+    restored = sum(1 for i, f in enumerate(again.node_frame)
+                   if i >= saved_nodes and f < ONLINE_SAVE_AT)
+    want2 = expected_launches(cfg, n - ONLINE_SAVE_AT + restored, solves2[0])
+    if launches2 != want2:
+        raise AssertionError(f"resumed run launched {launches2}, expected {want2} "
+                             f"({restored} restored-frame nodes)")
+    same = (np.array_equal(np.stack(again.odom_trace), odom)
+            and np.array_equal(again.trajectory(), traj)
+            and [e[:2] for e in again.edges] == [e[:2] for e in eng.edges]
+            and all(np.array_equal(a[2], b[2]) and np.array_equal(a[3], b[3])
+                    for a, b in zip(again.edges, eng.edges))
+            and again._count_grids.keys() == eng._count_grids.keys()
+            and all(torch.equal(again._count_grids[k], eng._count_grids[k])
+                    for k in eng._count_grids))
+    if not same:
+        raise AssertionError("the resumed run differs from the uninterrupted one")
+    print(f"online checkpoint after frame {ONLINE_SAVE_AT} ({saved_nodes} nodes, "
+          f"pending queries {pending}): {size_mb:.1f} MiB, saved in {save_s:.2f} s, "
+          f"loaded in {load_s:.2f} s; the resumed run (frames {ONLINE_SAVE_AT}..{n - 1} "
+          f"+ finalize) bitwise equal to the uninterrupted one (odometry, "
+          f"trajectory, edges, counting grids); its launches {launches2}, K1/K2 "
+          f"{restored} more than its frames: the restored-frame nodes; render_ogm "
+          f"{render_s:.3f} s", flush=True)
+
+    # ---- one cadence from the checkpoint on the CPU and on the card -----------
+    card, cpu = OnlineSlam(cfg, device=dev), OnlineSlam(cfg, device="cpu")
+    walls = {}
+    for name, e in (("card", card), ("cpu", cpu)):
+        e.load_checkpoint(ck)
+        t0 = time.perf_counter()
+        e.detect_loops()
+        e.optimize_pose_graph()
+        walls[name] = time.perf_counter() - t0
+    if ([x[:3] for x in cpu.loop_trace] != [x[:3] for x in card.loop_trace]
+            or [e[:2] for e in cpu.edges] != [e[:2] for e in card.edges]):
+        raise AssertionError("one cadence from the checkpoint: CPU and card candidates "
+                             "or edges differ")
+    de = se2_gap_free(np.asarray([x[3] for x in cpu.loop_trace]).reshape(-1, 3),
+                      np.asarray([x[3] for x in card.loop_trace]).reshape(-1, 3))
+    cs_rel = max([abs(a[4] / b[4] - 1) for a, b in zip(cpu.loop_trace, card.loop_trace)],
+                 default=0.0)
+    dp = se2_gap(cpu.trajectory(), card.trajectory())
+    print(f"online, one cadence from the checkpoint: {len(card.loop_trace)} candidates "
+          f"refined, {sum(1 for x in card.loop_trace if x[-1])} accepted; card "
+          f"{walls['card']:.2f} s, CPU {walls['cpu']:.2f} s; CPU against card: edges "
+          f"within {de[0]:.2e} m / {de[1]:.2e} rad, CS within {cs_rel:.2e} relative, "
+          f"optimized poses within {dp[0]:.2e} m / {dp[1]:.2e} rad", flush=True)
+    if not (de[0] <= LOOP_EDGE_BAND[0] and de[1] <= LOOP_EDGE_BAND[1]
+            and cs_rel <= LOOP_CS_BAND and dp[0] <= 1e-3 and dp[1] <= 1e-4):
+        raise AssertionError("one cadence from the checkpoint: CPU and card differ "
+                             "beyond the bands")
+    os.remove(ck)
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -1472,7 +1711,7 @@ def main() -> int:
 
     # ---- 7. full SLAM --------------------------------------------------------
     t_phase = time.perf_counter()
-    slam_launches, slam_res, slam_frames = slam_phase(cfg_on, dev)
+    slam_launches, slam_res, slam_frames, slam_gt = slam_phase(cfg_on, dev)
     for n in ("row_windows", "segment_topk_moments", "ndt_linearize",
               "ndt_robust_cost", "chol_solve"):
         if slam_launches[n] == 0:
@@ -1482,7 +1721,6 @@ def main() -> int:
     # ---- 8. the occupancy grid of that run ------------------------------------
     t_phase = time.perf_counter()
     ogm_k1 = ogm_phase(cfg_on, slam_res, slam_frames, dev)
-    del slam_res, slam_frames
     ogm_s = time.perf_counter() - t_phase
 
     # ---- 9. the Schur-complement pose graph at a full sequence's size -----
@@ -1490,10 +1728,16 @@ def main() -> int:
     schur_phase(dev, smi)
     schur_s = time.perf_counter() - t_phase
 
+    # ---- 10. online SLAM over the same drive ------------------------------------
+    t_phase = time.perf_counter()
+    online = online_phase(cfg_on, slam_res, slam_frames, slam_gt, dev, smi)
+    del slam_res, slam_frames
+    online_s = time.perf_counter() - t_phase
+
     def record(n, source, replaces, launches, measured):
         return dict(name=n, route="cuda", source="randt_slam_torch/csrc/" + source,
                     replaces="randt_slam_tpu/ops/" + replaces, launches=launches,
-                    **measured)
+                    online_launches=online[n], **measured)
 
     rows = [
         record("row_windows", "window_slice.cu", "window_slice.py:49",
@@ -1511,7 +1755,8 @@ def main() -> int:
     ]
     print(f"chip_smoke: passed in {time.perf_counter() - t_start:.1f} s wall (set-up "
           f"{setup_s:.1f} s, kernels and odometry {odometry_s:.1f} s, K5 {k5_s:.1f} s, "
-          f"full SLAM {slam_s:.1f} s, OGM {ogm_s:.1f} s, Schur {schur_s:.1f} s)",
+          f"full SLAM {slam_s:.1f} s, OGM {ogm_s:.1f} s, Schur {schur_s:.1f} s, "
+          f"online {online_s:.1f} s)",
           flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -299,6 +299,12 @@ def run_slam(cfg: SlamConfig, frames: F.Frame, sensor_to_base=None,
         pgo_iterations=int(info["iterations"]), timings=timings)
 
 
+def ogm_max_steps(cfg: SlamConfig) -> int:
+    """Steps of the device ray walk: twice a full-range beam's cells, which
+    walks every beam to its end as the native walk does."""
+    return min(2048, 2 * int(cfg.preprocessor.max_range / cfg.ogm.resolution))
+
+
 @torch.profiler.record_function("randt.ogm")
 def render_ogm(cfg: SlamConfig, result: SlamResult, frames: F.Frame,
                sensor_to_base=None, device=None):
@@ -351,7 +357,7 @@ def render_ogm(cfg: SlamConfig, result: SlamResult, frames: F.Frame,
     sensor_pose = OGM.compose(local, s2b.expand_as(local))
 
     A = beams.shape[1]
-    max_steps = min(2048, 2 * int(cfg.preprocessor.max_range / o.resolution))
+    max_steps = ogm_max_steps(cfg)
     node_sub = torch.from_numpy(np.asarray(odo.node_submap, np.int64)).to(dev)
     grids = torch.zeros(n_sub, sh, sw, dtype=torch.int32, device=dev)
     for s in range(n_sub):

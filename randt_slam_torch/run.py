@@ -1,28 +1,35 @@
-"""Command-line entry point of the PyTorch port (offline SLAM).
+"""Command-line entry point of the PyTorch port.
 
-Offline replay over a synthetic world or a converted ``.npz`` sequence, with
-the exports and metrics of ``randt_slam_tpu/run.py``: full SLAM (odometry,
-loop closure, pose-graph optimization) by default, odometry alone with
-``--odometry-only``; TUM + KITTI trajectories (per-frame odometry and the
-nodes), ``trajectory.json`` and ``metrics.json`` (``n_loop_closures``,
-odometry and SLAM ATE/RPE against ground truth, frames/s, per-phase wall
-seconds).  ``--ogm`` writes the global occupancy grid (``ogm.pgm``, full
-SLAM only), ``--export-ndt`` the last submap's NDT cells
-(``ndt_submap.npz``), ``--render`` the map view (``map.png``; needs
-matplotlib); ``--ref-yaml`` reads the reference's layered YAML files in
-place of the preset.
+Replay over a synthetic world or a converted ``.npz`` sequence, with the
+exports and metrics of ``randt_slam_tpu/run.py``: full offline SLAM
+(odometry, loop closure, pose-graph optimization) by default, odometry alone
+with ``--odometry-only``, or online mode with ``--online`` (frames one at a
+time, loop search and pose graph on their cadences, the pose graph
+re-anchoring the active submap mid-run); TUM + KITTI trajectories
+(per-frame odometry and the nodes), ``trajectory.json`` and
+``metrics.json`` (``n_loop_closures``, odometry and SLAM ATE/RPE against
+ground truth, frames/s, per-phase wall seconds; online, the stage
+``profile``).  ``--ogm`` writes the global occupancy grid (``ogm.pgm``),
+``--export-ndt`` the last submap's NDT cells (``ndt_submap.npz``),
+``--render`` the map view (``map.png``; needs matplotlib); ``--ref-yaml``
+reads the reference's layered YAML files in place of the preset.
+``--checkpoint`` saves the online state every ``--checkpoint-every`` frames
+and after the last frame, before the bag-end ``finalize`` (offline: the
+final carry); ``--resume`` continues an online run from such a file to the
+trajectory the uninterrupted run gives; ``--viz-every`` overwrites
+``live/`` with the current map view while an online run goes on.
 
 Usage:
     python -m randt_slam_torch.run --input synthetic --config synthetic \\
         --loop --frames 130 --ogm --output /tmp/t [--device cpu]
-
-Online mode (``--online``) and checkpoints (``--checkpoint``) arrive in a
-later slice of the port; asking for them exits with an error.
+    python -m randt_slam_torch.run --input synthetic --config synthetic \\
+        --loop --frames 130 --online --checkpoint ck.npz --output /tmp/t
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -45,11 +52,20 @@ def build_parser():
                    help="skip loop closure and pose-graph optimization")
     p.add_argument("--loop", action="store_true",
                    help="synthetic: closed-loop trajectory")
-    p.add_argument("--ogm", action="store_true", help="render the global OGM")
+    p.add_argument("--ogm", action="store_true",
+                   help="render the global OGM (online: also raytrace each "
+                        "keyframe as it exits, visualize_ogm)")
     p.add_argument("--online", action="store_true",
-                   help="incremental mode (later slice)")
+                   help="incremental mode with mid-run pose-graph feedback")
+    p.add_argument("--viz-every", type=int, default=0,
+                   help="--online: every N frames overwrite live/ with the "
+                        "current map view (0 = off)")
     p.add_argument("--checkpoint", default=None,
-                   help="checkpoint file (later slice)")
+                   help="checkpoint file; online: saved every "
+                        "--checkpoint-every frames, offline: final carry")
+    p.add_argument("--checkpoint-every", type=int, default=50)
+    p.add_argument("--resume", default=None,
+                   help="resume an --online run from a checkpoint file")
     p.add_argument("--render", action="store_true",
                    help="write map.png: OGM backdrop (with --ogm), NDT covariance "
                         "ellipses, odometry and optimized trajectory")
@@ -90,45 +106,143 @@ def load_frames(args, device):
     return frames, seq.gt_poses, seq.stamps
 
 
+def submap_cells(cfg, carry):
+    """The active submap's derived cells, in its frame and in the world
+    frame: numpy (mean, cov, valid, world mean, world cov)."""
+    from .ndt import grid as G
+    from .registration.matcher import transform_mean_cov
+
+    mu, cov, valid = G.derive_sparse_fields(
+        carry.submap, cfg.ndt_map.min_points_per_cell, cfg.ndt_map.cell)
+    mu_w, cov_w = transform_mean_cov(carry.submap_origin, mu, cov)
+    return [x.cpu().numpy() for x in (mu, cov, valid, mu_w, cov_w)]
+
+
+def ogm_extent(cfg):
+    o = cfg.ogm
+    return (-0.5 * o.size_x * o.resolution, 0.5 * o.size_x * o.resolution,
+            -0.5 * o.size_y * o.resolution, 0.5 * o.size_y * o.resolution)
+
+
+def export_live_view(output: str, cfg, engine, with_ogm: bool = False):
+    """Periodic online visualization export, the ROS-free stand-in for the
+    reference's RViz publishers (``rviz_visualization.cpp:13-18``):
+    overwrite ``live/{map.png, ndt_submap.npz, trajectory.json[, ogm.pgm]}``
+    with the CURRENT engine state, so a viewer polling the directory watches
+    the run as it goes.  ``map.png`` needs matplotlib."""
+    import numpy as np
+
+    from .io import viz
+
+    live = os.path.join(output, "live")
+    os.makedirs(live, exist_ok=True)
+    _, _, valid, mu_w, cov_w = submap_cells(cfg, engine.carry)
+    viz.export_normal_distributions(
+        os.path.join(live, "ndt_submap.npz"), mu_w, cov_w, valid)
+    ogm_grid = extent = None
+    if with_ogm and cfg.visualize_ogm and engine._count_grids:
+        ogm_grid = engine.render_ogm()
+        viz.write_pgm(os.path.join(live, "ogm.pgm"), ogm_grid)
+        extent = ogm_extent(cfg)
+    node_pose = engine.trajectory()
+    odom = (np.stack(engine.odom_trace) if engine.odom_trace
+            else np.zeros((0, 3), np.float32))
+    viz.export_trajectory_json(os.path.join(live, "trajectory.json"),
+                               np.asarray(engine.node_stamp), node_pose)
+    viz.render_map_png(
+        os.path.join(live, "map.png"), node_pose=node_pose, odom=odom,
+        ndt_mean=mu_w, ndt_cov=cov_w, ndt_valid=valid, ogm=ogm_grid,
+        ogm_extent=extent,
+        title=f"online frame {len(odom)} — {engine.n_loop_edges} loops")
+
+
+def run_online(args, cfg, frames, device, prof):
+    """The online branch of :func:`main`: (engine, OGM or None)."""
+    from .io import viz
+    from .pipeline import frontend as F
+    from .pipeline.online import OnlineSlam
+
+    engine = OnlineSlam(cfg, device=device)
+    start = 0
+    if args.resume:
+        engine.load_checkpoint(args.resume)
+        start = engine._frame_count
+    T = int(frames.stamp.shape[0])
+    with prof.stage("online_total"):
+        for t in range(start, T):
+            engine.process_frame(F.Frame(*(x[t] for x in frames)))
+            if args.checkpoint and (t + 1) % args.checkpoint_every == 0:
+                engine.save_checkpoint(args.checkpoint)
+            if args.viz_every and (t + 1) % args.viz_every == 0:
+                with prof.stage("online_viz"):
+                    export_live_view(args.output, cfg, engine, with_ogm=args.ogm)
+    # the live state before the bag end: a run resumed from it finalizes as
+    # this one does (the JAX CLI saves after ``finalize``)
+    if args.checkpoint:
+        engine.save_checkpoint(args.checkpoint)
+    # bag-end semantics (``ndt_slam.cpp:176-178``): drain the pending loop
+    # queue, one final pose graph over every edge and the re-anchoring
+    with prof.stage("online_finalize"):
+        engine.finalize()
+    ogm_grid = None
+    if args.ogm:
+        with prof.stage("ogm"):
+            ogm_grid = engine.render_ogm()
+        viz.write_pgm(os.path.join(args.output, "ogm.pgm"), ogm_grid)
+    return engine, ogm_grid
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    later = [flag for flag, on in (("--online", args.online),
-                                   ("--checkpoint", args.checkpoint)) if on]
-    if later:
-        print(f"randt_slam_torch.run: {', '.join(later)} arrives in a later "
-              "slice of the port", file=sys.stderr)
-        return 2
 
     import numpy as np
 
     from . import runtime
     from .io import formats, viz
     from .pipeline import slam
+    from .utils.profiling import Profiler
 
     device = runtime.resolve_device(args.device)
     os.makedirs(args.output, exist_ok=True)
     cfg = load_config(args)
+    if args.online and args.ogm:
+        cfg = dataclasses.replace(cfg, visualize_ogm=True)
     frames, gt_poses, stamps = load_frames(args, device)
+    prof = Profiler()
     t0 = time.perf_counter()
     timings = {}
     ogm_grid = None
-    if args.odometry_only:
-        odo = slam.run_odometry(cfg, frames, device=device)
-        node_pose, n_loops = odo.node_pose, 0
+    saturation = None
+    if args.online:
+        engine, ogm_grid = run_online(args, cfg, frames, device, prof)
+        carry = engine.carry
+        odom = np.stack(engine.odom_trace)
+        node_pose, n_loops = engine.trajectory(), engine.n_loop_edges
+        node_stamp = np.asarray(engine.node_stamp)
+        node_frame = np.asarray(engine.node_frame, np.int64)
     else:
-        res = slam.run_slam(cfg, frames, device=device)
-        odo = res.odometry
-        node_pose, n_loops = res.node_pose_optimized, res.loops.n_accepted
-        timings = {k: v for k, v in res.timings.items()
-                   if isinstance(v, float)}
-        timings.update({f"loops.{k}": v for k, v in res.loops.timings.items()})
-        if args.ogm:
-            t1 = time.perf_counter()
-            ogm_grid, _ = slam.render_ogm(cfg, res, frames, device=device)
-            timings["ogm_s"] = round(time.perf_counter() - t1, 3)
-            viz.write_pgm(os.path.join(args.output, "ogm.pgm"), ogm_grid)
+        if args.odometry_only:
+            odo = slam.run_odometry(cfg, frames, device=device)
+            node_pose, n_loops = odo.node_pose, 0
+        else:
+            res = slam.run_slam(cfg, frames, device=device)
+            odo = res.odometry
+            node_pose, n_loops = res.node_pose_optimized, res.loops.n_accepted
+            timings = {k: v for k, v in res.timings.items()
+                       if isinstance(v, float)}
+            timings.update({f"loops.{k}": v for k, v in res.loops.timings.items()})
+            if args.ogm:
+                t1 = time.perf_counter()
+                ogm_grid, _ = slam.render_ogm(cfg, res, frames, device=device)
+                timings["ogm_s"] = round(time.perf_counter() - t1, 3)
+                viz.write_pgm(os.path.join(args.output, "ogm.pgm"), ogm_grid)
+        carry, odom, saturation = odo.final_carry, odo.odom_poses, odo.saturation
+        node_stamp, node_frame = odo.node_stamp, odo.node_frame
+        if args.checkpoint:
+            from .utils import checkpoint as CK
+
+            CK.save_carry(args.checkpoint, carry)
     wall = time.perf_counter() - t0
-    odom = odo.odom_poses
     T = len(odom)
 
     ndt = None
@@ -136,22 +250,12 @@ def main(argv=None):
         # the last submap's cells (the ``/aligned_normal_distribution``
         # topic, ndt_msgs wire format), in its frame for the export and in
         # the world frame for the render
-        from .ndt import grid as G
-        from .registration.matcher import transform_mean_cov
-
-        carry = odo.final_carry
-        mu, cov, valid = G.derive_sparse_fields(
-            carry.submap, cfg.ndt_map.min_points_per_cell, cfg.ndt_map.cell)
-        mu_w, cov_w = transform_mean_cov(carry.submap_origin, mu, cov)
-        ndt = [x.cpu().numpy() for x in (mu, cov, valid, mu_w, cov_w)]
+        ndt = submap_cells(cfg, carry)
     if args.export_ndt:
         viz.export_normal_distributions(
             os.path.join(args.output, "ndt_submap.npz"), *ndt[:3])
     if args.render:
-        o = cfg.ogm
-        extent = None if ogm_grid is None else (
-            -0.5 * o.size_x * o.resolution, 0.5 * o.size_x * o.resolution,
-            -0.5 * o.size_y * o.resolution, 0.5 * o.size_y * o.resolution)
+        extent = None if ogm_grid is None else ogm_extent(cfg)
         viz.render_map_png(
             os.path.join(args.output, "map.png"), node_pose=node_pose,
             odom=odom, ndt_mean=ndt[3], ndt_cov=ndt[4], ndt_valid=ndt[2],
@@ -161,10 +265,10 @@ def main(argv=None):
     formats.write_tum(os.path.join(args.output, "odom_tum.txt"), stamps, odom)
     formats.write_kitti(os.path.join(args.output, "odom_kitti.txt"), odom)
     formats.write_tum(os.path.join(args.output, "slam_tum.txt"),
-                      odo.node_stamp, node_pose)
+                      node_stamp, node_pose)
     formats.write_kitti(os.path.join(args.output, "slam_kitti.txt"), node_pose)
     viz.export_trajectory_json(os.path.join(args.output, "trajectory.json"),
-                               odo.node_stamp, node_pose)
+                               node_stamp, node_pose)
 
     metrics = {
         "frames": T,
@@ -173,13 +277,16 @@ def main(argv=None):
         "device": str(device),
         "n_nodes": int(len(node_pose)),
         "n_loop_closures": int(n_loops),
-        "saturation": odo.saturation,
         "timings": timings,
     }
+    if saturation is not None:
+        metrics["saturation"] = saturation
+    if args.online:
+        metrics["profile"] = prof.report()
     if gt_poses is not None:
         metrics["odom_ate_m"] = round(formats.ate(odom, gt_poses[:T]), 4)
         metrics["slam_ate_m"] = round(
-            formats.ate(node_pose, gt_poses[odo.node_frame]), 4)
+            formats.ate(node_pose, gt_poses[node_frame]), 4)
         t_rpe, r_rpe = formats.rpe(odom, gt_poses[:T])
         metrics["odom_rpe_m"] = round(t_rpe, 4)
         metrics["odom_rpe_deg"] = round(r_rpe, 4)

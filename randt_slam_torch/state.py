@@ -7,6 +7,12 @@ back.  Fields are matched by name through ``_asdict()``, nested ``CellStats``
 and ``SparseGrid`` included, so neither side needs to import the other.  The
 cadence counters (``frontend.HOST_FIELDS``) become Python values.
 
+:func:`carry_to_npz_dict` and :func:`carry_from_npz` do the same for a
+checkpoint: the JAX package's ``.npz`` key layout (``<prefix><field>`` and
+``<prefix><field>/<sub>`` for the nested tuples) with its dtypes, the
+counters as 0-d ``int32`` / ``bool`` arrays, so either package resumes the
+other's checkpoint.
+
 :func:`odometry_from_numpy` and :func:`pose_graph_from_numpy` do the same
 for an odometry result and a pose graph, so that loop closure and the pose
 graph can be held to the reference from identical inputs.
@@ -68,6 +74,39 @@ def _to(value):
 def carry_to_numpy(carry: FrontendCarry) -> FrontendCarry:
     """The same carry with numpy leaves (counters as 0-d numpy scalars)."""
     return FrontendCarry(*(_to(v) for v in carry))
+
+
+def carry_to_npz_dict(tree, prefix: str = "") -> dict:
+    """``{prefix + "field[/sub]": numpy}`` of a carry (or any tuple of named
+    tuples of tensors and counters)."""
+    out = {}
+    for k, v in tree._asdict().items():
+        if hasattr(v, "_asdict"):
+            out.update(carry_to_npz_dict(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = _to(v)
+    return out
+
+
+def carry_from_npz(data, template, prefix: str = "", optional=frozenset()):
+    """A carry shaped as ``template`` from a mapping of ``.npz`` keys (see
+    :func:`carry_to_npz_dict`), on the template's devices and dtypes.  A
+    missing key whose field name is in ``optional`` keeps the template's
+    value; any other missing key raises ``KeyError``."""
+    def rebuild(node, pre, name):
+        if hasattr(node, "_asdict"):
+            return type(node)(**{k: rebuild(v, f"{pre}{k}/", k)
+                                 for k, v in node._asdict().items()})
+        key = pre.rstrip("/")
+        if key not in data:
+            if name in optional:
+                return node
+            raise KeyError(key)
+        if not isinstance(node, torch.Tensor):
+            return _host(data[key])
+        return torch.from_numpy(np.array(data[key])).to(node.device, node.dtype)
+
+    return rebuild(template, prefix, None)
 
 
 _DEVICE_FIELDS = ("submap_cells_n", "submap_cells_s", "submap_cells_ss")

@@ -6,8 +6,8 @@
   CUDA they raise instead of dropping to the CPU.
 * Its configuration presets equal the JAX package's field by field.
 * The CLI runs full SLAM and odometry, writes the OGM, the NDT export, the
-  map view and ``trajectory.json``, reads a reference YAML, and refuses what
-  later slices bring.
+  map view and ``trajectory.json`` and reads a reference YAML (its online
+  mode and checkpoints: ``tests/test_torch_online.py``).
 """
 
 import ast
@@ -89,6 +89,10 @@ def test_entry_points_need_a_device_without_cuda():
             fn(cfg, None, frames)  # the device is resolved first
     with pytest.raises(RuntimeError, match="device='cpu'"):
         state.odometry_from_numpy(None, None)
+    from randt_slam_torch.pipeline.online import OnlineSlam
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        OnlineSlam(cfg)
 
 
 @pytest.mark.parametrize("preset", ["synthetic_config", "oxford_config",
@@ -202,12 +206,3 @@ def test_cli_ref_yaml(tmp_path):
         jrun.load_config(jrun.build_parser().parse_args(argv)))
     out, m = _cli(tmp_path, "--odometry-only", "--ref-yaml", str(p), frames=6)
     assert m["frames"] == 6 and np.isfinite(m["odom_ate_m"])
-
-
-@pytest.mark.parametrize("extra", [["--online"], ["--checkpoint", "ck"]])
-def test_cli_refuses_later_slices(tmp_path, extra):
-    cmd = [sys.executable, "-m", "randt_slam_torch.run", "--input", "synthetic",
-           "--device", "cpu", "--output", str(tmp_path / "x"), *extra]
-    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
-    assert res.returncode != 0
-    assert "later slice" in res.stderr

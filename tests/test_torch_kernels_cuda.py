@@ -54,7 +54,12 @@ PyTorch is installed:
   keyframe node and no other kernel; counting grids bitwise equal to the
   CPU's from the same tables, the occupancy within 1e-5; two card runs
   bitwise equal.
+* ``OnlineSlam`` on the card: the CPU's tables, poses within 1e-2 m /
+  1e-3 rad of the CPU's; resumed from its own checkpoint, bitwise the
+  uninterrupted run.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -65,6 +70,27 @@ from randt_slam_torch.ops import ndt_linearize as K3
 from randt_slam_torch.ops import segment_moments as K2
 from randt_slam_torch.ops import small_chol as K4
 from randt_slam_torch.ops import window_slice as K1
+
+
+def tiny_config(**kw):
+    """``__graft_entry__._tiny_cfg`` (a JAX package module) built from the
+    port's own configuration classes."""
+    from randt_slam_torch import config as C
+
+    cfg = C.derive(C.SlamConfig(
+        ndt_map=C.MapConfig(size_x=96, size_y=96, resolution=3.0,
+                            min_points_per_cell=6, max_neighbour_linf_distance=9.0),
+        preprocessor=C.PreprocessorConfig(min_range=2.0, max_range=40.0,
+                                          min_intensity=40.0,
+                                          beam_distance_increment_threshold=1.0),
+        matcher=C.MatcherConfig(smoothing_steps=3, gnc_steps=2, lm_max_iterations=6),
+        local_fuser=C.LocalFuserConfig(submap_size_poses=6, submap_overlap=3),
+        scan_context=C.ScanContextConfig(num_ring=10, num_sector=24, max_radius=40.0),
+        capacity=C.CapacityConfig(max_points=1024, max_scan_cells=64, max_azimuths=64,
+                                  max_range_bins=128, max_submap_cells=128,
+                                  max_submaps=4, max_nodes=64, max_edges=128,
+                                  max_keyframes=64)))
+    return dataclasses.replace(cfg, **kw)
 
 
 @pytest.fixture
@@ -641,3 +667,56 @@ def test_ogm_scatters_under_deterministic_algorithms(dev):
         torch.use_deterministic_algorithms(prev)
     assert torch.equal(grid, grid_d) and torch.equal(total, total_d)
     assert int(grid.min()) < 0 and float(total.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_online_card_against_cpu_and_resume(dev, tmp_path):
+    """``OnlineSlam`` over 16 frames of ``chip_smoke.py``'s Oxford-geometry
+    drive (kernel switches on, loop search every 2 frames, pose graph every
+    6, online raytracing on): the card's node and edge tables equal the
+    CPU's and its poses lie within 1e-2 m / 1e-3 rad of them, the band of
+    chip_smoke's odometry comparison; the card's run resumed from its own
+    checkpoint after 9 frames is bitwise the uninterrupted run (odometry,
+    trajectory, edges, counting grids)."""
+    from chip_smoke import SWITCHES_ON, render_frames
+    from randt_slam_torch.config import oxford_config
+    from randt_slam_torch.pipeline import frontend as F
+    from randt_slam_torch.pipeline import slam
+    from randt_slam_torch.pipeline.online import OnlineSlam
+
+    cfg = dataclasses.replace(oxford_config(**SWITCHES_ON), visualize_ogm=True)
+    scans, az, ranges, stamps, _ = render_frames(16)
+    ck = str(tmp_path / "ck.npz")
+
+    def run(device, save_at=None, resume=False):
+        frames = slam.frames_from_arrays(scans, az, ranges, stamps, device=device)
+        eng = OnlineSlam(cfg, loop_every=2, pgo_every=6, device=device)
+        if resume:
+            eng.load_checkpoint(ck)
+        for t in range(eng._frame_count, 16):
+            if t == save_at:
+                eng.save_checkpoint(ck)
+            eng.process_frame(F.Frame(*(x[t] for x in frames)))
+        eng.finalize()
+        return eng
+
+    def tables(e):
+        return (e.node_submap, e.node_frame, e.node_is_root,
+                [x[:2] for x in e.edges], e.n_loop_edges)
+
+    card, cpu = run(dev, save_at=9), run("cpu")
+    assert tables(card) == tables(cpu)
+    for a, b in ((card.trajectory(), cpu.trajectory()),
+                 (np.stack(card.odom_trace), np.stack(cpu.odom_trace))):
+        d = np.abs(a - b)
+        print(f"online card against CPU: {d[:, :2].max():.2e} m / {d[:, 2].max():.2e} rad")
+        assert d[:, :2].max() <= 1e-2 and d[:, 2].max() <= 1e-3
+    again = run(dev, resume=True)
+    assert np.array_equal(np.stack(again.odom_trace), np.stack(card.odom_trace))
+    assert np.array_equal(again.trajectory(), card.trajectory())
+    assert tables(again) == tables(card)
+    for a, b in zip(again.edges, card.edges):
+        assert np.array_equal(a[2], b[2]) and np.array_equal(a[3], b[3])
+    assert again._count_grids.keys() == card._count_grids.keys()
+    for k, g in card._count_grids.items():
+        assert torch.equal(again._count_grids[k], g)

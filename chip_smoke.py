@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Four paths of the port run at the Oxford configuration, and two modules
+Five paths of the port run at the Oxford configuration, and two modules
 between them: offline odometry with the kernel switches off
 (``oxford_config()``: the scan kernels K1 and K2, the LM loop in autograd
 and ``solve_ex``) and on
@@ -11,9 +11,11 @@ linearize/cost kernels K3a/K3b and the Cholesky kernel K4 in the LM loop),
 and full offline SLAM (``run_slam``: odometry with the switches on,
 ScanContext loop closure with the CS gate, the pose graph), then the
 occupancy grid of that SLAM run and the Schur-complement pose graph at a
-full sequence's size, and last online SLAM (``OnlineSlam``: the same front
+full sequence's size, then online SLAM (``OnlineSlam``: the same front
 end with loop search, the pose graph re-anchoring the active submap and
-raytracing on their cadences, checkpoint and resume).  The full segment
+raytracing on their cadences, checkpoint and resume), and last batched
+odometry (``parallel/batch``: B drives per card in one front end, each
+kernel taking the whole batch in one launch).  The full segment
 sum K5 has no pipeline caller; its entry point is ``ndt/cells.from_points``.
 
 Phases (any failed check raises and the script exits non-zero):
@@ -103,7 +105,22 @@ Phases (any failed check raises and the script exits non-zero):
    grids; K1 and K2 once more per restored-frame node), and one cadence
    from it on the CPU and on the card gives the same candidates and edges,
    refined edges and CS within the bands below and optimized poses within
-   1e-3 m / 1e-4 rad.
+   1e-3 m / 1e-4 rad;
+11. batched odometry: ``parallel/batch.make_batched_scan`` over B distinct
+   drives of that geometry per card (drive 0 is phase 4's), B in
+   ``BATCH_SIZES`` with the switches on over 30 frames and B = 4 with the
+   switches off over 16: per B the steady ms per batched frame and fleet
+   frames/s (B x frames / wall, timed inside the run), the device busy share
+   and launches per LM iteration of a profiled 2-frame window, the peak
+   device memory; exact launches, those of one sequence (K1 and K2 once per
+   batched frame, K3a/K3b/K4 per window solve as in phase 4); every member
+   against a single-sequence run of its first 8 frames (identical tables,
+   poses within ``BATCH_BANDS``, the first frame with other bits printed)
+   and its ATE against its rendered ground truth within the band below;
+   then K1, K2, K3a, K3b and K4 on one frame's batched inputs of the
+   largest batch against their batched plain versions (the tolerances of
+   phase 3), B = 1 bitwise equal to the unbatched launch, and their times
+   and bounds at that batch.
 
 The second-to-last line of the output is the kernels' JSON record, the last
 line ``{"ok": true, "device": {...}}``.
@@ -177,6 +194,20 @@ K3A_ONE_BLOCK_US = 15.20
 K3B_ONE_BLOCK_US = 14.30
 K4_ONE_BLOCK_US = 79.58
 K2_BLOCK_PER_SEGMENT_US = 27.49
+# batched odometry (phase 11): B sequences per card, each a distinct drive
+# (drive 0 is phase 4's), switches on over N_BATCH frames (steady from
+# N_SHORT), and one switches-off run of BATCH_OFF_B sequences over
+# N_BATCH_OFF frames (steady from BATCH_OFF_STEADY); every member is held
+# against a single-sequence run of its first N_BATCH_CHECK frames within
+# tests/test_torch_batch.py's free-running bands (ATE gap, headings,
+# positions)
+BATCH_SIZES = (1, 2, 4, 8)
+N_BATCH = 30
+BATCH_OFF_B = 4
+N_BATCH_OFF = 16
+BATCH_OFF_STEADY = 8
+N_BATCH_CHECK = 8
+BATCH_BANDS = (1e-2, 5e-3, 1e-1)
 # and K1's (a block per row behind an int32 cast of the starts) and K5's
 # (a plain stable sort, binary search and casts before a kernel over the
 # runs), their whole calls
@@ -510,14 +541,15 @@ def check_k5(k5_sets, entry, cfg, dev, per_call):
                 dense_bound_ms=bdd["bound_ms"], **t), launches["segment_moments"]
 
 
-def capture_solve_inputs(cfg, frames, dev, frame):
-    """Run ``frames`` on the switches-on path and keep the K3a inputs of
-    every LM iteration of ``frame`` (its pair packs, slot poses, mu and NDT
-    scale) and the damped systems K4 solves there.  Returns the result and
-    the captured inputs."""
+@contextlib.contextmanager
+def spying_solves(frame):
+    """Keep the K3a inputs of every LM iteration of frame ``frame`` (its
+    pair packs, slot poses, mu and NDT scale) and the damped systems K4
+    solves there, on the switches-on path run inside the block; yields
+    (now, lin, chol): the caller's ``on_frame`` sets ``now[0]`` to the
+    frame about to be stepped."""
     from randt_slam_torch.ops import ndt_linearize as NL
     from randt_slam_torch.ops import small_chol
-    from randt_slam_torch.pipeline import slam
 
     now, lin, chol = [-1], [], []
     orig_lin, orig_chol = NL.linearize, small_chol.chol_solve
@@ -535,13 +567,23 @@ def capture_solve_inputs(cfg, frames, dev, frame):
 
     NL.linearize, small_chol.chol_solve = spy_lin, spy_chol
     try:
-        res = slam.run_odometry(cfg, frames, device=dev,
-                                on_frame=lambda t, c: now.__setitem__(0, t))
+        yield now, lin, chol
     finally:
         NL.linearize, small_chol.chol_solve = orig_lin, orig_chol
     if not lin or len(chol) != len(lin):
         raise AssertionError(f"captured {len(lin)} linearizations and {len(chol)} "
                              f"solves in frame {frame}")
+
+
+def capture_solve_inputs(cfg, frames, dev, frame):
+    """Run ``frames`` on the switches-on path, keeping what
+    :func:`spying_solves` keeps of ``frame``.  Returns the result and the
+    captured inputs."""
+    from randt_slam_torch.pipeline import slam
+
+    with spying_solves(frame) as (now, lin, chol):
+        res = slam.run_odometry(cfg, frames, device=dev,
+                                on_frame=lambda t, c: now.__setitem__(0, t))
     return res, lin, chol
 
 
@@ -1587,6 +1629,327 @@ def online_phase(cfg, res, frames, gt, dev, smi):
     return launches
 
 
+def member_outputs(outs, b, n):
+    """Member ``b``'s first ``n`` frames of a batched (B, T, ...) output."""
+    def take(x):
+        if x is None:
+            return None
+        if isinstance(x, tuple):
+            return type(x)(*(take(v) for v in x))
+        return x[b, :n]
+    return take(outs)
+
+
+def batch_run(cfg, frames_b, steady_from, dev, on_frame=None):
+    """One ``make_batched_scan`` run of ``frames_b`` (B, T, ...): returns the
+    outputs, the launch counts, the window solves, the steady ms per batched
+    frame (frames ``steady_from`` to the end, timed inside the run, the
+    device drained at its start), the fleet frames/s and the peak device
+    memory."""
+    import torch
+
+    from randt_slam_torch.ops import build
+    from randt_slam_torch.parallel import batch
+
+    B, n = frames_b.stamp.shape[:2]
+    marks = []
+
+    def mark(t, carries):
+        if on_frame is not None:
+            on_frame(t, carries)
+        if t == steady_from:
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    scan = batch.make_batched_scan(cfg, np.zeros(3), device=dev)
+    carries = batch.init_batched_carry(cfg, B, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with counting_solves() as solves:
+        build.reset_launches()
+        _, outs = scan(carries, frames_b, on_frame=mark)  # ends in the host copy
+        t_end = time.perf_counter()
+        launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    steady = t_end - marks[steady_from]
+    return (outs, launches, solves[0], steady / (n - steady_from) * 1e3,
+            B * (n - steady_from) / steady, peak)
+
+
+def batch_kernel_inputs(cfg, scans_b, az, ranges, dev):
+    """K1 and K2 inputs of one batched frame (B, A, R), formed as the
+    batched main path forms them."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from randt_slam_torch import preprocess as pp
+    from randt_slam_torch.ndt import cells as C
+
+    img = torch.from_numpy(scans_b).to(dev)
+    B = img.shape[0]
+    r = torch.from_numpy(ranges).to(dev).expand(B, -1)
+    pc = cfg.preprocessor
+    rw = 32
+    gated = torch.where(((r > pc.min_range) & (r < pc.max_range))[:, None, :], img,
+                        float("-inf"))
+    peak = torch.argmax(gated, dim=-1)
+    sentinel = torch.full((B, rw), -1e9, device=dev)
+    k1 = (Fn.pad(img, (rw, rw)).contiguous(),
+          torch.cat([sentinel, r, sentinel], dim=-1).contiguous(), peak, 2 * rw + 1)
+    scan = pp.PolarScan(img, torch.from_numpy(az).to(dev).expand(B, -1), r,
+                        torch.ones(img.shape[:2], dtype=torch.bool, device=dev))
+    filt = pp.filter_scan(scan, pc, torch.zeros(3, device=dev))
+    ids, num = pp.cluster_ids(filt.points, filt.mask, pc)
+    values = C._moment_channels(filt.points, filt.mask).contiguous()
+    return k1, (values, ids, num, cfg.capacity.max_scan_cells)
+
+
+def check_batched_kernels(k1b, k2b, lin, chol, cfg, dev):
+    """Phase 11 (b): K1, K2, K3a, K3b and K4 on real batched inputs (one
+    frame of the B = 8 run) against their batched plain versions, to the
+    single checks' tolerances; B = 1 batched bitwise equal to the unbatched
+    launch; each kernel's time at this B and its bound for the batched
+    bytes.  Returns {kernel: (ms, bound_ms, bound_by)}."""
+    import torch
+
+    from randt_slam_torch.ops import ndt_linearize as NL
+    from randt_slam_torch.ops import segment_moments as K2
+    from randt_slam_torch.ops import small_chol as K4
+    from randt_slam_torch.ops import window_slice as K1
+
+    out = {}
+    # K1: exact
+    img, rr, peak, win = k1b
+    B, A, R = img.shape
+    a = K1.row_windows_cuda(img, rr, peak, win)
+    p = K1.row_windows_plain(img, rr, peak, win)
+    one = K1.row_windows_cuda(img[:1], rr[:1], peak[:1], win)
+    ub = K1.row_windows_cuda(img[0], rr[0], peak[0], win)
+    torch.cuda.synchronize()
+    if not (torch.equal(a[0], p[0]) and torch.equal(a[1], p[1])):
+        raise AssertionError("batched K1: kernel differs from the plain version")
+    if not (torch.equal(one[0][0], ub[0]) and torch.equal(one[1][0], ub[1])):
+        raise AssertionError("K1: B = 1 batched differs from the unbatched launch")
+    nbytes = B * (A * win * 4 + R * 4 + A * 8 + 2 * A * win * 4)
+    out["row_windows"] = (device_ms(lambda: K1.row_windows_cuda(img, rr, peak, win)),
+                          *bound_ms(nbytes, 0))
+    # K2: top-k equal to the CPU path's, moments within 1e-5 of their scale
+    values, ids, num, k = k2b
+    o, topi = K2.segment_topk_moments(values, ids, num, k)
+    plain = K2.topi_moments_plain(values, ids, topi, num)
+    scale = K2.topi_moments_plain(values.abs(), ids, topi, num)
+    _, topi_cpu = K2.segment_topk_moments(values.cpu(), ids.cpu(), num, k)
+    ok = (ids >= 0) & (ids < num)
+    ids32, topi32 = torch.where(ok, ids, -1).to(torch.int32), topi.to(torch.int32)
+    one = K2.topi_moments_cuda(values[:1], ids32[:1], topi32[:1])
+    ub = K2.topi_moments_cuda(values[0], ids32[0], topi32[0])
+    torch.cuda.synchronize()
+    if not torch.equal(topi.cpu(), topi_cpu):
+        raise AssertionError("batched K2: top-k segments differ from the CPU path's")
+    if not bool(((o - plain).abs() <= 1e-5 * scale).all()):
+        raise AssertionError("batched K2: moments differ from plain beyond 1e-5 of their scale")
+    if not torch.equal(one[0], ub):
+        raise AssertionError("K2: B = 1 batched differs from the unbatched launch")
+    P, CH = values.shape[-2:]
+    kept = int(sum(int(torch.isin(ids[b], topi[b]).sum()) for b in range(B)))
+    nbytes = B * (P * 4 + k * 4 + k * CH * 4) + kept * CH * 4
+    out["segment_topk_moments"] = (
+        device_ms(lambda: K2.topi_moments_cuda(values, ids32, topi32)),
+        *bound_ms(nbytes, kept * CH))
+    # K3a/K3b: within K3_REL of each sum's scale, r2max within 1e-5
+    sc, al = cfg.matcher.loss_function_scale, cfg.matcher.loss_function_convexity
+    poses, mu, ns, packed = lin[-1]
+    pose4 = NL.pose_inputs(poses)
+    H, g, rho = NL.linearize_cuda(pose4, mu, ns, packed, sc, al)
+    Hp, gp, rhop = NL.linearize_plain(pose4, mu, ns, packed, sc, al)
+    Hs, gs, rhos = NL.sums_to_blocks(
+        NL.linearize_terms(pose4, mu, ns, packed, sc, al).abs().sum(-1))
+    c, m = NL.robust_cost_cuda(pose4, mu, packed, sc, al)
+    cp, mp = NL.robust_cost_plain(pose4, mu, packed, sc, al)
+    cs = NL.robust_cost_terms(pose4, mu, packed, sc, al)[0].abs().sum(-1)
+    first = tuple(x[:1] for x in packed)
+    one_a = NL.linearize_cuda(pose4[:1], mu[:1], ns[:1], first, sc, al)
+    ub_a = NL.linearize_cuda(pose4[0], mu[0], ns[0], tuple(x[0] for x in packed), sc, al)
+    one_b = NL.robust_cost_cuda(pose4[:1], mu[:1], first, sc, al)
+    ub_b = NL.robust_cost_cuda(pose4[0], mu[0], tuple(x[0] for x in packed), sc, al)
+    torch.cuda.synchronize()
+    worst = max(float(((x - y).abs() / s.clamp(min=1e-30)).max())
+                for x, y, s in ((H, Hp, Hs), (g, gp, gs), (rho, rhop, rhos), (c, cp, cs)))
+    if not worst <= K3_REL:
+        raise AssertionError(f"batched K3a/K3b differ from plain by {worst:.2e} of "
+                             f"their scale (limit {K3_REL})")
+    if not bool(((m - mp).abs() <= 1e-5 * mp).all()):
+        raise AssertionError("batched K3b: r2max differs from plain beyond 1e-5 of itself")
+    if not (all(torch.equal(x[0], y) for x, y in zip(one_a, ub_a))
+            and all(torch.equal(x[0], y) for x, y in zip(one_b, ub_b))):
+        raise AssertionError("K3a/K3b: B = 1 batched differs from the unbatched launch")
+    Bm, W, N = packed[0].shape[0], packed[0].shape[1], packed[0].shape[-1]
+    n_valid = int((packed[4] > 0).sum())
+    nbytes_in = Bm * W * N * 4 + n_valid * 18 * 4 + Bm * W * 4 * 4
+    out["ndt_linearize"] = (device_ms(lambda: NL.linearize_cuda(pose4, mu, ns, packed, sc, al)),
+                            *bound_ms(nbytes_in + Bm * 2 * 4 + Bm * W * 13 * 4,
+                                      n_valid * K3A_FLOPS_PER_PAIR))
+    out["ndt_robust_cost"] = (device_ms(lambda: NL.robust_cost_cuda(pose4, mu, packed, sc, al)),
+                              *bound_ms(nbytes_in + Bm * 4 + Bm * W * 2 * 4,
+                                        n_valid * K3B_FLOPS_PER_PAIR))
+    # K4: the systems of one LM iteration of all members, within the float32
+    # Cholesky forward-error bound of a float64 solve and of plain
+    A, b = chol[-1]
+    Pn = A.shape[-1]
+    x = K4.chol_solve_cuda(A, b)
+    xp = K4.chol_solve_plain(A, b)
+    x64 = torch.linalg.solve(A.double(), b.double())
+    kappa = torch.linalg.cond(A.double())
+    one = K4.chol_solve_cuda(A[:1].contiguous(), b[:1].contiguous())
+    ub = K4.chol_solve_cuda(A[0].contiguous(), b[0].contiguous())
+    torch.cuda.synchronize()
+    bound = 4 * Pn * float(np.finfo(np.float32).eps) * kappa * x64.abs().amax(-1)
+    if not bool((((x.double() - x64).abs().amax(-1) <= bound)
+                 & ((x - xp).double().abs().amax(-1) <= bound)).all()):
+        raise AssertionError("batched K4: off the float32 Cholesky bound")
+    if not torch.equal(one[0], ub):
+        raise AssertionError("K4: B = 1 batched differs from the unbatched launch")
+    nbytes = Bm * (Pn * (Pn + 1) // 2 + 2 * Pn) * 4
+    out["chol_solve"] = (device_ms(lambda: K4.chol_solve_cuda(A, b)),
+                         *bound_ms(nbytes, Bm * (2 * Pn ** 3 // 3 + 2 * Pn * Pn)))
+    print(f"batched kernels on one frame of the B = {Bm} run: K1 bitwise equal to "
+          f"plain, K2 top-k equal to the CPU path's and moments within 1e-5 of "
+          f"their scale, K3a/K3b within {worst:.2e} of plain's scale (limit "
+          f"{K3_REL}) and r2max within 1e-5, K4 within the float32 Cholesky "
+          f"bound of a float64 solve and of plain ({Bm} systems, P={Pn}); B = 1 "
+          f"bitwise equal to the unbatched launch for all five; {n_valid} of "
+          f"{Bm * W * N} pairs valid, {kept} points in the kept segments", flush=True)
+    for name, (ms, bd, by) in out.items():
+        print(f"  {name} at B = {Bm}: kernel {ms * 1e3:.2f} us, bound {bd * 1e3:.4f} us "
+              f"({by})", flush=True)
+    return out
+
+
+def batch_phase(cfg_on, cfg_off, drive0, dev, smi):
+    """Phase 11: batched odometry, B distinct drives per card through
+    ``parallel/batch.make_batched_scan``; ``drive0`` is phase 4's drive
+    (scans, az, ranges, stamps, gt).  Returns the kernels' times and bounds
+    at the largest B (:func:`check_batched_kernels`)."""
+    import torch
+
+    from randt_slam_torch.io import formats
+    from randt_slam_torch.parallel import batch
+    from randt_slam_torch.pipeline import frontend as F
+    from randt_slam_torch.pipeline import slam
+
+    scans0, az, ranges, stamps0, gt0 = drive0
+    b_max = max(BATCH_SIZES)
+    t0 = time.perf_counter()
+    drives = [(scans0[:N_BATCH], stamps0[:N_BATCH], gt0[:N_BATCH])]
+    for i in range(1, b_max):
+        sc, _, _, st, gt = render_frames(N_BATCH, seed=i)
+        drives.append((sc, st, gt))
+    frames = [slam.frames_from_arrays(sc, az, ranges, st, device=dev)
+              for sc, st, _ in drives]
+    print(f"phase 11, batched odometry ({smi}): {b_max} drives of {N_BATCH} frames "
+          f"rendered and uploaded in {time.perf_counter() - t0:.1f} s; device memory "
+          f"resident before: {torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB",
+          flush=True)
+
+    def stack(B, n):
+        return F.Frame(*(torch.stack([fr[k][:n] for fr in frames[:B]])
+                         for k in range(len(F.Frame._fields))))
+
+    # single-sequence runs of every member's first frames, per switch setting
+    t0 = time.perf_counter()
+    singles = {
+        "on": [slam.run_odometry(cfg_on, F.Frame(*(x[:N_BATCH_CHECK] for x in fr)),
+                                 device=dev) for fr in frames],
+        "off": [slam.run_odometry(cfg_off, F.Frame(*(x[:N_BATCH_CHECK] for x in fr)),
+                                  device=dev) for fr in frames[:BATCH_OFF_B]],
+    }
+    print(f"single-sequence runs of {N_BATCH_CHECK} frames ({b_max} switches on, "
+          f"{BATCH_OFF_B} off): {time.perf_counter() - t0:.1f} s", flush=True)
+    tables = ("node_id", "node_frame", "node_submap", "node_is_root",
+              "edge_begin", "edge_end")
+
+    def hold(label, outs, B, n):
+        """(c) every member against its single run, (d) its ATE."""
+        gaps, first_bits, ates = [], [], []
+        for b in range(B):
+            single = singles[label][b]
+            mine = member_outputs(outs, b, N_BATCH_CHECK)
+            tab = slam._unstack_outputs(mine)
+            for k in tables:
+                if not np.array_equal(tab[k], getattr(single, k)):
+                    raise AssertionError(f"batch B={B} switches {label}: member {b}'s "
+                                         f"{k} table differs from its single run")
+            d = np.abs(mine.odom_pose - single.odom_poses)
+            gt = drives[b][2]
+            ate_gap = abs(formats.ate(mine.odom_pose, gt[:N_BATCH_CHECK])
+                          - formats.ate(single.odom_poses, gt[:N_BATCH_CHECK]))
+            if not (ate_gap < BATCH_BANDS[0] and d[:, 2].max() <= BATCH_BANDS[1]
+                    and d[:, :2].max() <= BATCH_BANDS[2]):
+                raise AssertionError(f"batch B={B} switches {label}: member {b} off its "
+                                     f"single run: ATE gap {ate_gap:.2e} m, "
+                                     f"{d[:, 2].max():.2e} rad, {d[:, :2].max():.2e} m")
+            differ = np.flatnonzero((mine.odom_pose != single.odom_poses).any(axis=1))
+            first_bits.append(int(differ[0]) if len(differ) else None)
+            gaps.append(float(d[:, :2].max()))
+            pose = outs.odom_pose[b, :n]
+            if not (np.all(np.isfinite(pose)) and pose.shape == (n, 3)):
+                raise AssertionError(f"batch B={B}: member {b}'s poses are not finite")
+            ates.append(formats.ate(pose, gt[:n]))
+            if not ates[-1] < ATE_BAND_M:
+                raise AssertionError(f"batch B={B} switches {label}: member {b}'s ATE "
+                                     f"{ates[-1]:.3f} m outside the band")
+        return gaps, first_bits, ates
+
+    def one(label, cfg, B, n, steady_from, capture):
+        ctx = spying_solves(CAPTURE_FRAME) if capture else contextlib.nullcontext(
+            (None, None, None))
+        with ctx as (now, lin, chol):
+            outs, launches, solves, ms, fps, peak = batch_run(
+                cfg, stack(B, n), steady_from, dev,
+                on_frame=(lambda t, c: now.__setitem__(0, t)) if capture else None)
+        want = expected_launches(cfg, n, solves)
+        if launches != want:
+            raise AssertionError(f"batch B={B} switches {label}: launches {launches} over "
+                                 f"{n} batched frames and {solves} window solves, "
+                                 f"expected one sequence's {want}")
+        gaps, first_bits, ates = hold(label, outs, B, n)
+        sub = stack(B, 2)
+        _, wall, rows, total, _ = profile_window(
+            lambda: batch.make_batched_scan(cfg, np.zeros(3), device=dev)(
+                batch.init_batched_carry(cfg, B, device=dev), sub))
+        m = cfg.matcher
+        n_launch = sum(r[1] for r in rows)
+        print(f"batch B={B}, switches {label}, {n} frames: steady (frames {steady_from}.."
+              f"{n - 1}, timed inside the run) {ms:.1f} ms per batched frame = "
+              f"{fps:.3f} fleet frames/s ({fps / B:.3f} per sequence); device busy "
+              f"{100 * total / 1e6 / wall:.1f}% of a profiled 2-frame window "
+              f"({wall * 1e3:.1f} ms wall), {n_launch / (m.gnc_steps * m.lm_max_iterations):.1f} "
+              f"device launches per LM iteration; peak device memory "
+              f"{peak / 2**30:.3f} GiB; launches {launches} = one sequence's "
+              f"({solves} window solves); members against their single runs "
+              f"(first {N_BATCH_CHECK} frames): tables identical, positions within "
+              f"{max(gaps):.2e} m, first frame with other bits per member "
+              f"{first_bits}; ATE per member {[round(a, 4) for a in ates]} m (band < "
+              f"{ATE_BAND_M} m)", flush=True)
+        return (lin, chol), dict(ms=ms, fps=fps, peak=peak)
+
+    record = {}
+    for B in BATCH_SIZES:
+        captured, record[("on", B)] = one("on", cfg_on, B, N_BATCH, N_SHORT, B == b_max)
+    _, record[("off", BATCH_OFF_B)] = one("off", cfg_off, BATCH_OFF_B, N_BATCH_OFF,
+                                          BATCH_OFF_STEADY, False)
+    mid = N_BATCH // 2
+    k1b, k2b = batch_kernel_inputs(cfg_on, np.stack([d[0][mid] for d in drives]),
+                                   az, ranges, dev)
+    kernels = check_batched_kernels(k1b, k2b, *captured, cfg_on, dev)
+    base = record[("on", 1)]["fps"]
+    print("batch curve, switches on (fleet frames/s, and against B = 1 in this call): "
+          + "; ".join(f"B={B} {record[('on', B)]['fps']:.3f} "
+                      f"({record[('on', B)]['fps'] / base:.2f}x)" for B in BATCH_SIZES),
+          flush=True)
+    return kernels
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -1734,10 +2097,20 @@ def main() -> int:
     del slam_res, slam_frames
     online_s = time.perf_counter() - t_phase
 
+    # ---- 11. batched odometry: B drives per card ---------------------------
+    t_phase = time.perf_counter()
+    batched = batch_phase(cfg_on, cfg, (scans, az, ranges, stamps, gt), dev, smi)
+    batch_s = time.perf_counter() - t_phase
+
     def record(n, source, replaces, launches, measured):
+        extra = {}
+        if n in batched:  # the kernel at the largest batch of phase 11
+            ms, bd, by = batched[n]
+            extra = dict(batch_b=max(BATCH_SIZES), batch_ms=ms, batch_bound_ms=bd,
+                         batch_bound_by=by)
         return dict(name=n, route="cuda", source="randt_slam_torch/csrc/" + source,
                     replaces="randt_slam_tpu/ops/" + replaces, launches=launches,
-                    online_launches=online[n], **measured)
+                    online_launches=online[n], **measured, **extra)
 
     rows = [
         record("row_windows", "window_slice.cu", "window_slice.py:49",
@@ -1756,7 +2129,7 @@ def main() -> int:
     print(f"chip_smoke: passed in {time.perf_counter() - t_start:.1f} s wall (set-up "
           f"{setup_s:.1f} s, kernels and odometry {odometry_s:.1f} s, K5 {k5_s:.1f} s, "
           f"full SLAM {slam_s:.1f} s, OGM {ogm_s:.1f} s, Schur {schur_s:.1f} s, "
-          f"online {online_s:.1f} s)",
+          f"online {online_s:.1f} s, batched {batch_s:.1f} s)",
           flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

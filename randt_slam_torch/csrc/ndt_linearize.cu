@@ -20,6 +20,11 @@
 // ndt_scale are read from device memory (they are device tensors inside the
 // LM loop; passing them by value would make the host wait on the device).
 //
+// A batch of B window problems is B * W slots in one launch: the packs are
+// (B*W, ch, N), and slot w belongs to member w / W, whose own mu and
+// ndt_scale it reads (one value each per member).  Each slot's sums are
+// its own; the wrapper sums rho over each member's W slots.
+//
 // What bounds it on an H100: latency, for both.  The bytes are reading
 // the valid weight of every pair and the other 18 floats of each valid pair
 // once (an invalid pair adds nothing; at most W * N * 76 B = 0.47 MB at the
@@ -193,9 +198,10 @@ linearize_kernel(const float* __restrict__ pose4, const float* __restrict__ mu_p
                  const float* __restrict__ mm, const float* __restrict__ mc,
                  const float* __restrict__ am, const float* __restrict__ ac,
                  const float* __restrict__ valid, float* __restrict__ H,
-                 float* __restrict__ g, float* __restrict__ rho_out, int N,
-                 float scale, float alpha, float eps, int branch, float factor,
-                 float exponent, float exponent_m1) {
+                 float* __restrict__ g, float* __restrict__ rho_out,
+                 int slots_per_member, int N, float scale, float alpha,
+                 float eps, int branch, float factor, float exponent,
+                 float exponent_m1) {
   __shared__ float warp_part[kWarps][kTerms];
   __shared__ float block_part[kTerms];
   cg::cluster_group cluster = cg::this_cluster();
@@ -205,8 +211,10 @@ linearize_kernel(const float* __restrict__ pose4, const float* __restrict__ mu_p
   const int lane = t % 32;
   const float tx = pose4[4 * w], ty = pose4[4 * w + 1];
   const float c = pose4[4 * w + 2], s = pose4[4 * w + 3];
-  const float ndt_scale = *ndt_scale_p;
-  const Barron loss(*mu_p, scale, alpha, branch, factor, exponent, exponent_m1);
+  const int member = w / slots_per_member;
+  const float ndt_scale = ndt_scale_p[member];
+  const Barron loss(mu_p[member], scale, alpha, branch, factor, exponent,
+                    exponent_m1);
   const size_t o3 = static_cast<size_t>(w) * 3 * N;
   const size_t o6 = static_cast<size_t>(w) * 6 * N;
   const float* vw = valid + static_cast<size_t>(w) * N;
@@ -290,9 +298,9 @@ robust_cost_kernel(const float* __restrict__ pose4, const float* __restrict__ mu
                    const float* __restrict__ mm, const float* __restrict__ mc,
                    const float* __restrict__ am, const float* __restrict__ ac,
                    const float* __restrict__ valid, float* __restrict__ rho_out,
-                   float* __restrict__ r2max_out, int N, float scale, float alpha,
-                   float eps, int branch, float factor, float exponent,
-                   float exponent_m1) {
+                   float* __restrict__ r2max_out, int slots_per_member, int N,
+                   float scale, float alpha, float eps, int branch,
+                   float factor, float exponent, float exponent_m1) {
   __shared__ float warp_rho[kWarps];
   __shared__ float warp_top[kWarps];
   __shared__ float block_part[2];  // this block's rho sum and r2 max
@@ -303,7 +311,8 @@ robust_cost_kernel(const float* __restrict__ pose4, const float* __restrict__ mu
   const int lane = t % 32;
   const float tx = pose4[4 * w], ty = pose4[4 * w + 1];
   const float c = pose4[4 * w + 2], s = pose4[4 * w + 3];
-  const Barron loss(*mu_p, scale, alpha, branch, factor, exponent, exponent_m1);
+  const Barron loss(mu_p[w / slots_per_member], scale, alpha, branch, factor,
+                    exponent, exponent_m1);
   const size_t o3 = static_cast<size_t>(w) * 3 * N;
   const size_t o6 = static_cast<size_t>(w) * 6 * N;
   const float* vw = valid + static_cast<size_t>(w) * N;
@@ -363,43 +372,51 @@ robust_cost_kernel(const float* __restrict__ pose4, const float* __restrict__ mu
 
 }  // namespace
 
-// K3a.  pose4 (W,4), mu (1), ndt_scale (1), packs (W,3|6|3|6|1,N) float32,
-// all contiguous on the device -> H (W,3,3), g (W,3), rho (W).  Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// the slot count a launch takes: S slots of W per member, S a multiple of W,
+// S * kClusterBlocks blocks in one grid dimension
+static bool bad_slots(int S, int W, int N) {
+  return S < 0 || W < 0 || N < 0 || S > (1 << 27) ||
+         (S > 0 && (W < 1 || S % W != 0));
+}
+
+// K3a.  pose4 (S,4), mu (S/W), ndt_scale (S/W), packs (S,3|6|3|6|1,N)
+// float32, S = B*W slots, all contiguous on the device -> H (S,3,3), g (S,3),
+// rho (S).  Launches on `stream` and returns cudaGetLastError() (0 on
+// success).
 extern "C" int ndt_linearize_f32(const float* pose4, const float* mu,
                                  const float* ndt_scale, const float* m_mean,
                                  const float* m_cov, const float* a_mean,
                                  const float* a_cov, const float* valid,
-                                 float* H, float* g, float* rho, int W, int N,
-                                 float scale, float alpha, float eps,
+                                 float* H, float* g, float* rho, int S, int W,
+                                 int N, float scale, float alpha, float eps,
                                  int branch, float factor, float exponent,
                                  float exponent_m1, void* stream) {
-  if (W < 0 || N < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (W > 0) {
+  if (bad_slots(S, W, N)) return static_cast<int>(cudaErrorInvalidValue);
+  if (S > 0) {
     // clusters of kClusterBlocks consecutive blocks, one per slot
-    linearize_kernel<<<W * kClusterBlocks, kThreads, 0,
+    linearize_kernel<<<S * kClusterBlocks, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-        pose4, mu, ndt_scale, m_mean, m_cov, a_mean, a_cov, valid, H, g, rho, N,
-        scale, alpha, eps, branch, factor, exponent, exponent_m1);
+        pose4, mu, ndt_scale, m_mean, m_cov, a_mean, a_cov, valid, H, g, rho, W,
+        N, scale, alpha, eps, branch, factor, exponent, exponent_m1);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3b.  The same inputs without ndt_scale -> rho (W), r2max (W).
+// K3b.  The same inputs without ndt_scale -> rho (S), r2max (S).
 extern "C" int ndt_robust_cost_f32(const float* pose4, const float* mu,
                                    const float* m_mean, const float* m_cov,
                                    const float* a_mean, const float* a_cov,
                                    const float* valid, float* rho, float* r2max,
-                                   int W, int N, float scale, float alpha,
-                                   float eps, int branch, float factor,
-                                   float exponent, float exponent_m1,
-                                   void* stream) {
-  if (W < 0 || N < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (W > 0) {
+                                   int S, int W, int N, float scale,
+                                   float alpha, float eps, int branch,
+                                   float factor, float exponent,
+                                   float exponent_m1, void* stream) {
+  if (bad_slots(S, W, N)) return static_cast<int>(cudaErrorInvalidValue);
+  if (S > 0) {
     // clusters of kClusterBlocks consecutive blocks, one per slot
-    robust_cost_kernel<<<W * kClusterBlocks, kThreads, 0,
+    robust_cost_kernel<<<S * kClusterBlocks, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-        pose4, mu, m_mean, m_cov, a_mean, a_cov, valid, rho, r2max, N, scale,
+        pose4, mu, m_mean, m_cov, a_mean, a_cov, valid, rho, r2max, W, N, scale,
         alpha, eps, branch, factor, exponent, exponent_m1);
   }
   return static_cast<int>(cudaGetLastError());

@@ -22,6 +22,11 @@
 // cost of the block's first loads and its fold, and the round trips of the
 // matched rows (PERF.md).
 //
+// A batch of B scans is a second grid axis: block (x, b) takes ranks
+// x * kGroup ... of scan b and reads only that scan's ids and rows, so the
+// work grows as B, not as B^2 (which one flat set of B * P ids and B * k
+// segments would cost: every block would scan every scan's ids).
+//
 // Design: each block owns kGroup consecutive kept ranks, whose segment ids
 // it keeps in registers (128 blocks at k = 512: one wave on 132 SMs).  Its
 // 512 threads read the ids once, kBatch loads in flight per thread, and
@@ -51,6 +56,11 @@ topi_moments_kernel(const float* __restrict__ values,
                     const int* __restrict__ topi,
                     float* __restrict__ out, int P, int CH, int k) {
   __shared__ float warp_part[kWarps][kTerms];
+  // this block's scan of the batch
+  values += static_cast<size_t>(blockIdx.y) * P * CH;
+  ids += static_cast<size_t>(blockIdx.y) * P;
+  topi += static_cast<size_t>(blockIdx.y) * k;
+  out += static_cast<size_t>(blockIdx.y) * k * CH;
   const int s0 = blockIdx.x * kGroup;
   const int t = threadIdx.x;
   const int lane = t % 32;
@@ -134,16 +144,18 @@ static_assert(kTerms <= kThreads, "one thread per output of the block");
 
 }  // namespace
 
-// values (P, CH) float32 with CH <= 16, ids (P,) int32, topi (k,) int32
-// -> out (k, CH) float32; all contiguous on the device.  Launches on `stream`
-// and returns cudaGetLastError() (0 on success).
+// values (B, P, CH) float32 with CH <= 16, ids (B, P) int32, topi (B, k)
+// int32 -> out (B, k, CH) float32; all contiguous on the device.  Launches
+// on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int topi_moments_f32(const float* values, const int* ids,
-                                const int* topi, float* out, int P, int CH,
-                                int k, void* stream) {
-  if (CH < 1 || CH > kMaxChannels) return static_cast<int>(cudaErrorInvalidValue);
-  if (k > 0) {
-    topi_moments_kernel<<<(k + kGroup - 1) / kGroup, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+                                const int* topi, float* out, int B, int P,
+                                int CH, int k, void* stream) {
+  if (CH < 1 || CH > kMaxChannels || B < 0 || B > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (k > 0 && B > 0) {
+    const dim3 grid((k + kGroup - 1) / kGroup, B);
+    topi_moments_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         values, ids, topi, out, P, CH, k);
   }
   return static_cast<int>(cudaGetLastError());

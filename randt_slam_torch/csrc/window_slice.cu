@@ -6,6 +6,10 @@
 //   out_img[a, w] = img[a, j],  out_rng[a, w] = rng_row[j],
 //   j = clamp(starts[a] + w, 0, R - 1)
 //
+// Over a batch of B scans the rows of all of them are one grid: row a of
+// the B * A reads the range row of its own scan, a / A (the Pallas kernel
+// gains a grid axis over the batch under vmap).
+//
 // The clamp is per element, as the JAX package's plain path does; inside the
 // caller's contract (0 <= start, start + win <= R) it is the identity.
 //
@@ -36,13 +40,14 @@ row_windows_kernel(const float* __restrict__ img,
                    const float* __restrict__ rng_row,
                    const long long* __restrict__ starts,
                    float* __restrict__ out_img, float* __restrict__ out_rng,
-                   int A, int R, int win) {
+                   int rows, int A, int R, int win) {
   const int lane = threadIdx.x & 31;
   const int a = blockIdx.x * kRows + (threadIdx.x >> 5);
-  if (a >= A) return;  // whole warps leave together
+  if (a >= rows) return;  // whole warps leave together
   long long start = lane == 0 ? starts[a] : 0;
   start = __shfl_sync(0xffffffffu, start, 0);
   const float* row = img + static_cast<size_t>(a) * R;
+  rng_row += static_cast<size_t>(a / A) * R;  // this row's scan
   float* oi = out_img + static_cast<size_t>(a) * win;
   float* orng = out_rng + static_cast<size_t>(a) * win;
   for (int w0 = lane; w0 < win; w0 += 32 * kPerLane) {
@@ -70,18 +75,22 @@ row_windows_kernel(const float* __restrict__ img,
 
 }  // namespace
 
-// img (A, R), rng_row (R,) float32, starts (A,) int64 -> out_img, out_rng
-// (A, win) float32; all contiguous on the device.  Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
+// img (B, A, R), rng_row (B, R) float32, starts (B, A) int64 -> out_img,
+// out_rng (B, A, win) float32; all contiguous on the device.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int row_windows_f32(const float* img, const float* rng_row,
                                const long long* starts, float* out_img,
-                               float* out_rng, int A, int R, int win,
+                               float* out_rng, int B, int A, int R, int win,
                                void* stream) {
-  if (A < 0 || R < 1 || win < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (A > 0 && win > 0) {
-    row_windows_kernel<<<(A + kRows - 1) / kRows, kRows * 32, 0,
+  if (B < 0 || A < 0 || R < 1 || win < 0 ||
+      static_cast<long long>(B) * A > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rows = B * A;
+  if (rows > 0 && win > 0) {
+    row_windows_kernel<<<(rows + kRows - 1) / kRows, kRows * 32, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-        img, rng_row, starts, out_img, out_rng, A, R, win);
+        img, rng_row, starts, out_img, out_rng, rows, A, R, win);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -47,7 +47,8 @@ def zeros(shape, dtype=torch.float32, device=None) -> CellStats:
 
 
 def _unpack(out) -> CellStats:
-    return CellStats(n=out[:, 0], s=out[:, 1:4], ss=out[:, 4:13].reshape(-1, 3, 3))
+    return CellStats(n=out[..., 0], s=out[..., 1:4],
+                     ss=out[..., 4:13].reshape(out.shape[:-1] + (3, 3)))
 
 
 def from_points(points, mask, segment_ids, num_segments,
@@ -70,7 +71,9 @@ def from_points(points, mask, segment_ids, num_segments,
 def from_points_compact(points, mask, segment_ids, num_segments, k,
                         polar=None, beam_cov=None):
     """:func:`from_points` + :func:`compact` fused: moments only for the ``k``
-    most-populated segments (kernel K2).  Returns (CellStats (k,), ids (k,))."""
+    most-populated segments (kernel K2).  Returns (CellStats (..., k), ids
+    (..., k)); a leading batch axis on the points (..., P) gives each scan
+    its own cells."""
     from ..ops.segment_moments import segment_topk_moments
 
     chans = _moment_channels(points, mask, polar, beam_cov)
@@ -79,12 +82,13 @@ def from_points_compact(points, mask, segment_ids, num_segments, k,
 
 
 def _moment_channels(points, mask, polar=None, beam_cov=None):
-    """Per-point 13-channel moment vector [w | w·p | (w·ppᵀ + w·noise)]."""
+    """Per-point 13-channel moment vector [w | w·p | (w·ppᵀ + w·noise)],
+    points (..., P, 3) -> (..., P, 13)."""
     w = mask.to(points.dtype)
-    pts = points * w[:, None]
-    outer = pts[:, :, None] * points[:, None, :]
+    pts = points * w[..., None]
+    outer = pts[..., :, None] * points[..., None, :]
     if polar is not None:
-        a, r = polar[:, 0], polar[:, 1]
+        a, r = polar[..., 0], polar[..., 1]
         sa, ca = torch.sin(a), torch.cos(a)
         zero = torch.zeros_like(a)
         one = torch.ones_like(a)
@@ -97,9 +101,10 @@ def _moment_channels(points, mask, polar=None, beam_cov=None):
             dim=-2,
         )
         B = runtime.const(beam_cov, points.dtype, points.device)
-        pcov = torch.einsum("pij,jk,plk->pil", J, B, J)
-        outer = outer + pcov * w[:, None, None]
-    return torch.cat([w[:, None], pts, outer.reshape(-1, 9)], dim=-1)
+        pcov = torch.einsum("pij,jk,plk->pil", J.reshape(-1, 3, 3), B,
+                            J.reshape(-1, 3, 3)).reshape(J.shape)
+        outer = outer + pcov * w[..., None, None]
+    return torch.cat([w[..., None], pts, outer.reshape(w.shape + (9,))], dim=-1)
 
 
 def merge(a: CellStats, b: CellStats) -> CellStats:
@@ -207,6 +212,13 @@ def transform(c: CellStats, pose) -> CellStats:
         + c.n[..., None, None] * (t_[..., :, None] * t_[..., None, :])
     )
     return CellStats(n=c.n, s=s_new, ss=ss_new)
+
+
+def transform_set(c: CellStats, pose) -> CellStats:
+    """One set of cells (..., C) moved by its one pose (..., 3)."""
+    m = transform(CellStats(c.n.unsqueeze(-2), c.s.unsqueeze(-3),
+                            c.ss.unsqueeze(-4)), pose.unsqueeze(-2))
+    return CellStats(m.n.squeeze(-2), m.s.squeeze(-3), m.ss.squeeze(-4))
 
 
 def compact(c: CellStats, k: int):

@@ -17,6 +17,12 @@ functions are used by no pipeline path and are not ported.
 
 Loop closure associates against a compacted (flat) submap cell table:
 :func:`allpairs_neighbors`, batched over leading candidate dimensions.
+
+The submap functions take an optional leading batch axis, B independent
+submaps: index grids (B, H, W), tables (B, S), counts (B,).  Their scatters
+and gathers run once over all members, each member's indices shifted into
+its own stretch of one flat index (:func:`_flat`), so that what one member
+writes or reads never reaches another's.
 """
 
 from __future__ import annotations
@@ -58,7 +64,8 @@ def cell_index(geom: GridGeom, xy):
 
 
 class SparseGrid(NamedTuple):
-    """NDT submap as a dense int32 index grid over a compact cell table.
+    """NDT submap as a dense int32 index grid over a compact cell table
+    (each field with a leading (B,) for a batch of submaps).
 
       index: (H, W) int32, -1 = empty, else slot into the stats table
       stats: CellStats with batch (S,) -- compact sufficient statistics
@@ -71,13 +78,22 @@ class SparseGrid(NamedTuple):
 
 
 def empty_sparse(geom: GridGeom, capacity: int, dtype=torch.float32,
-                 device=None) -> SparseGrid:
+                 device=None, batch: tuple = ()) -> SparseGrid:
+    batch = tuple(batch)
     return SparseGrid(
-        index=torch.full((geom.size_y, geom.size_x), -1, dtype=torch.int32,
-                         device=device),
-        stats=C.zeros((capacity,), dtype, device),
-        count=torch.zeros((), dtype=torch.int32, device=device),
+        index=torch.full(batch + (geom.size_y, geom.size_x), -1,
+                         dtype=torch.int32, device=device),
+        stats=C.zeros(batch + (capacity,), dtype, device),
+        count=torch.zeros(batch, dtype=torch.int32, device=device),
     )
+
+
+def _flat(idx, per_member: int):
+    """Indices (B, ...) into each member's own table of ``per_member``
+    entries, as indices into the B tables laid end to end."""
+    shift = torch.arange(0, idx.shape[0] * per_member, per_member,
+                         device=idx.device)
+    return idx + shift.reshape((-1,) + (1,) * (idx.dim() - 1))
 
 
 @torch.profiler.record_function("randt.submap_merge")
@@ -90,49 +106,68 @@ def scatter_sparse(geom: GridGeom, sg: SparseGrid, new: CellStats, valid) -> Spa
     written into the index grid; every incoming cell then re-gathers its slot
     so in-batch duplicates merge into the winner's slot.  Table overflow
     drops cells.  Dropped writes go to one extra slot past the end, which is
-    cut off (the JAX package's ``mode="drop"``).
+    cut off (the JAX package's ``mode="drop"``).  Over a batch of submaps
+    (``new`` (B, Cn)) the race, the prefix sum and the count are each
+    member's own.
     """
-    S = sg.stats.n.shape[0]
+    S = sg.stats.n.shape[-1]
     HW = geom.size_x * geom.size_y
     dev = sg.index.device
+    batched = sg.count.dim() == 1
+    nb = sg.count.shape[0] if batched else 1
     mu = C.mean(new)
     ix, iy, inb = cell_index(geom, mu[..., :2])
     ok = inb & valid & (new.n > 0)
     flat = torch.where(ok, iy * geom.size_x + ix, 0)
+    if batched:
+        flat = _flat(flat, HW)
     idx_flat = sg.index.reshape(-1)
 
+    # dropped writes of every member go to one sentinel past all of them
     cur = idx_flat[flat]
     is_new = ok & (cur < 0)
-    Cn = flat.shape[0]
+    Cn = flat.shape[-1]
     pos = torch.arange(Cn, device=dev)
-    race = torch.full((HW + 1,), Cn, dtype=torch.long, device=dev)
-    race.scatter_reduce_(0, torch.where(is_new, flat, HW), pos, "amin",
+    race = torch.full((nb * HW + 1,), Cn, dtype=torch.long, device=dev)
+    race.scatter_reduce_(0, torch.where(is_new, flat, nb * HW).reshape(-1),
+                         pos.expand(flat.shape).reshape(-1), "amin",
                          include_self=True)
     winner = is_new & (race[flat] == pos)
-    order = torch.cumsum(winner.to(torch.int32), dim=0) - 1
-    slot_w = sg.count + order
+    order = torch.cumsum(winner.to(torch.int32), dim=-1) - 1
+    slot_w = sg.count[..., None] + order
     alloc = winner & (slot_w < S)
     idx_ext = torch.cat([idx_flat, idx_flat.new_full((1,), -1)])
-    idx_ext[torch.where(alloc, flat, HW)] = slot_w.to(torch.int32)
-    idx_flat = idx_ext[:HW]
+    idx_ext[torch.where(alloc, flat, nb * HW)] = slot_w.to(torch.int32)
+    idx_flat = idx_ext[:nb * HW]
 
     slot = idx_flat[flat]
     use = ok & (slot >= 0)
     tgt = torch.where(use, slot.long(), S)
+    if batched:
+        tgt = _flat(tgt, S + 1)
+    tgt = tgt.reshape(-1)
     w = use.to(new.n.dtype)
 
+    cd = w.dim() - 1  # the cell axis
+
     def add(table, rows):
-        ext = torch.cat([table, table.new_zeros((1,) + table.shape[1:])])
-        return runtime.index_add(ext, tgt, rows)[:S]
+        # one extra (dropped) slot per member; the members' tables end to end
+        tail = rows.shape[cd + 1:]
+        ext = torch.cat([table, table.new_zeros(table.shape[:cd] + (1,) + tail)],
+                        dim=cd)
+        out = runtime.index_add(ext.reshape((-1,) + tail), tgt,
+                                rows.reshape((-1,) + tail))
+        return out.reshape(ext.shape).narrow(cd, 0, S)
 
     stats = CellStats(
         n=add(sg.stats.n, new.n * w),
         s=add(sg.stats.s, new.s * w[..., None]),
         ss=add(sg.stats.ss, new.ss * w[..., None, None]),
     )
-    count = torch.clamp(sg.count + torch.sum(winner.to(torch.int32)), max=S)
+    count = torch.clamp(sg.count + torch.sum(winner.to(torch.int32), dim=-1),
+                        max=S)
     return SparseGrid(
-        index=idx_flat.reshape(geom.size_y, geom.size_x), stats=stats,
+        index=idx_flat.reshape(sg.index.shape), stats=stats,
         count=count.to(torch.int32),
     )
 
@@ -141,13 +176,9 @@ def transform_sparse(geom: GridGeom, sg: SparseGrid, pose) -> SparseGrid:
     """Rigid-transform a sparse grid and re-key cells by transformed means
     (``Map::transformMap`` + submap re-anchoring, with a fresh index grid).
     Cells that land outside the grid are dropped."""
-    moved = C.transform(
-        CellStats(sg.stats.n[None], sg.stats.s[None], sg.stats.ss[None]),
-        pose[None],
-    )
-    moved = CellStats(moved.n[0], moved.s[0], moved.ss[0])
-    fresh = empty_sparse(geom, sg.stats.n.shape[0], sg.stats.s.dtype,
-                         sg.index.device)
+    moved = C.transform_set(sg.stats, pose)
+    fresh = empty_sparse(geom, sg.stats.n.shape[-1], sg.stats.s.dtype,
+                         sg.index.device, batch=sg.count.shape)
     return scatter_sparse(geom, fresh, moved, moved.n > 0)
 
 
@@ -184,31 +215,39 @@ def window_neighbors_sparse(
 ) -> NeighborSet:
     """Masked top-k neighbor lookup over a static (2r+1)^2 window: one index
     gather from the grid, then field gathers from the compact table.  Same
-    cells as the reference ring search whenever they lie in the window."""
+    cells as the reference ring search whenever they lie in the window.
+    With a leading batch axis (index (B, H, W), tables (B, S, ...), queries
+    (B, Q, ...)) each member's queries look up its own grid and table."""
     H, W = geom.size_y, geom.size_x
     dev = q_mean.device
+    batched = index.dim() == 3
     ix, iy, inb = cell_index(geom, q_mean[..., :2])
 
     d = torch.arange(-radius, radius + 1, device=dev)
     dyy, dxx = torch.meshgrid(d, d, indexing="ij")
     dxx = dxx.reshape(-1)
     dyy = dyy.reshape(-1)
-    nx = ix[:, None] + dxx[None, :]  # (Q, W2)
-    ny = iy[:, None] + dyy[None, :]
-    ok = inb[:, None] & (nx >= 0) & (nx < W) & (ny >= 0) & (ny < H)
+    nx = ix[..., None] + dxx  # (..., Q, W2)
+    ny = iy[..., None] + dyy
+    ok = inb[..., None] & (nx >= 0) & (nx < W) & (ny >= 0) & (ny < H)
     flat = torch.where(ok, ny * W + nx, 0)
 
-    slots = index.reshape(-1)[flat]             # (Q, W2) int32
-    have = ok & (slots >= 0) & q_valid[:, None]
+    slots = index.reshape(-1)[_flat(flat, H * W) if batched else flat]
+    have = ok & (slots >= 0) & q_valid[..., None]   # (..., Q, W2)
     sl = torch.where(have, slots, 0).long()
-    gm = t_mean[sl]                              # (Q, W2, 3)
-    gc = t_cov[sl]                               # (Q, W2, 3, 3)
+    if batched:
+        sl = _flat(sl, t_valid.shape[-1])
+        t_mean, t_cov, t_valid = (t_mean.reshape(-1, 3), t_cov.reshape(-1, 3, 3),
+                                  t_valid.reshape(-1))
+    gm = t_mean[sl]                              # (..., Q, W2, 3)
+    gc = t_cov[sl]                               # (..., Q, W2, 3, 3)
     gv = have & t_valid[sl]
 
     if use_distribution_metric:
-        dist = C.mahalanobis_sq_intensity(q_mean[:, None, :], q_cov[:, None], gm, gc)
+        dist = C.mahalanobis_sq_intensity(q_mean[..., :, None, :],
+                                          q_cov[..., :, None, :, :], gm, gc)
     else:
-        diff = gm[..., :2] - q_mean[:, None, :2]
+        diff = gm[..., :2] - q_mean[..., :, None, :2]
         dist = torch.sum(diff * diff, dim=-1)
     dist = torch.where(gv, dist, float("inf"))
 
@@ -227,8 +266,11 @@ def _select_topk(dist, gm, gc, k: int):
 
 
 def _take_row(x, i):
-    """x (Q, W2, ...) at window position i (Q,) -> (Q, ...)."""
-    return x[torch.arange(x.shape[0], device=x.device), i]
+    """x (..., Q, W2, ...) at window position i (..., Q) -> (..., Q, ...)."""
+    n = i.dim()
+    rows = x.reshape((-1,) + x.shape[n:])
+    picked = rows[torch.arange(rows.shape[0], device=x.device), i.reshape(-1)]
+    return picked.reshape(i.shape + x.shape[n + 1:])
 
 
 def _sanitize(nb: NeighborSet) -> NeighborSet:

@@ -23,6 +23,11 @@ Layout: pairs are packed channels-first once per frame by
 :func:`pack_pairs`, (W, ch, N) with N = F*C*K in the row-major order of
 (F, C, K), covariances as their 6 unique components ``SYM6``.
 
+A leading batch axis is optional: poses (B, W, 3), packs (B, W, ch, N),
+``mu`` and ``ndt_scale`` (B,) give (B, W, ...) blocks and (B,) cost sums,
+maxima and rho sums, each over its own member's W slots, in one launch of
+B * W slots.
+
 On a CUDA tensor :func:`linearize`/:func:`robust_cost` launch the kernels;
 on a CPU tensor they run :func:`linearize_plain`/:func:`robust_cost_plain`,
 the same formulas as vectorised tensor code (no autograd), so that the CPU
@@ -34,6 +39,7 @@ wait on the device inside the LM loop.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -43,49 +49,55 @@ from . import build
 SYM6 = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 
 
-def pack_pairs(m_mean, m_cov, a_mean, a_cov, valid):
-    """(W, ..., 3) / (W, ..., 3, 3) / (W, ...) bool -> channels-first pack.
+def pack_pairs(m_mean, m_cov, a_mean, a_cov, valid, slot_dims: int = 1):
+    """(*S, ..., 3) / (*S, ..., 3, 3) / (*S, ...) bool -> channels-first pack,
+    with ``S`` the first ``slot_dims`` dims ((W,), or (B, W) for a batch).
 
     Returns contiguous (m_mean3, m_cov6, a_mean3, a_cov6, valid1), each
-    (W, ch, N) float32; broadcast (expanded) inputs are materialised here.
+    (*S, ch, N) float32; broadcast (expanded) inputs are materialised here.
     """
-    W = m_mean.shape[0]
-    mm = m_mean.reshape(W, -1, 3)
-    am = a_mean.reshape(W, -1, 3)
-    mc = m_cov.reshape(W, -1, 3, 3)
-    ac = a_cov.reshape(W, -1, 3, 3)
-    v = valid.reshape(W, -1)
+    S = m_mean.shape[:slot_dims]
+    mm = m_mean.reshape(S + (-1, 3))
+    am = a_mean.reshape(S + (-1, 3))
+    mc = m_cov.reshape(S + (-1, 3, 3))
+    ac = a_cov.reshape(S + (-1, 3, 3))
+    v = valid.reshape(S + (-1,))
 
     def sym(c):
-        return torch.stack([c[..., i, j] for (i, j) in SYM6], dim=1)
+        return torch.stack([c[..., i, j] for (i, j) in SYM6], dim=slot_dims)
 
     return (
-        mm.transpose(1, 2).contiguous(),            # (W, 3, N)
-        sym(mc),                                     # (W, 6, N)
-        am.transpose(1, 2).contiguous(),             # (W, 3, N)
-        sym(ac),                                     # (W, 6, N)
-        v[:, None, :].to(torch.float32).contiguous(),  # (W, 1, N)
+        mm.transpose(-1, -2).contiguous(),          # (*S, 3, N)
+        sym(mc),                                     # (*S, 6, N)
+        am.transpose(-1, -2).contiguous(),          # (*S, 3, N)
+        sym(ac),                                     # (*S, 6, N)
+        v[..., None, :].to(torch.float32).contiguous(),  # (*S, 1, N)
     )
 
 
 def pose_inputs(poses):
-    """(W, 3) poses -> (W, 4) [tx, ty, cos, sin], as the JAX package forms
-    them outside its kernel."""
-    th = poses[:, 2]
-    return torch.stack([poses[:, 0], poses[:, 1], torch.cos(th), torch.sin(th)],
-                       dim=1).contiguous()
+    """(..., W, 3) poses -> (..., W, 4) [tx, ty, cos, sin], as the JAX
+    package forms them outside its kernel."""
+    th = poses[..., 2]
+    return torch.stack([poses[..., 0], poses[..., 1], torch.cos(th),
+                        torch.sin(th)], dim=-1).contiguous()
+
+
+def _per_slot(x):
+    """A per-member scalar (...) broadcast against (..., W, N) terms."""
+    return x[..., None, None]
 
 
 def _pair_terms(c, s, tx, ty, mm, mc, am, ac):
-    """Shared per-pair math over (W, N); c, s, tx, ty are (W, 1).
+    """Shared per-pair math over (..., W, N); c, s, tx, ty are (..., W, 1).
 
     Returns (r2, q0, q1, q2, dth0, dth1, dS) with dS the 5 nonzero
     components of dS/dtheta.  The same expansion as ``ndt_residual_sq``.
     """
-    mx, my, mi = mm.unbind(1)
-    a, b, e, cc, f, g = mc.unbind(1)
-    fx, fy, fi = am.unbind(1)
-    f00, f01, f02, f11, f12, f22 = ac.unbind(1)
+    mx, my, mi = mm.unbind(-2)
+    a, b, e, cc, f, g = mc.unbind(-2)
+    fx, fy, fi = am.unbind(-2)
+    f00, f01, f02, f11, f12, f22 = ac.unbind(-2)
 
     u = c * mx - s * my
     v = s * mx + c * my
@@ -137,18 +149,20 @@ def _pair_terms(c, s, tx, ty, mm, mc, am, ac):
 
 
 def _slot_pose(pose4):
-    return (pose4[:, 2:3], pose4[:, 3:4], pose4[:, 0:1], pose4[:, 1:2])
+    return (pose4[..., 2:3], pose4[..., 3:4], pose4[..., 0:1], pose4[..., 1:2])
 
 
 def linearize_terms(pose4, mu, ndt_scale, packed, scale: float, alpha: float,
                     eps: float = 1e-12):
-    """Per-pair terms (W, 10, N) of K3a: wJ0J0, wJ0J1, wJ0J2, wJ1J1, wJ1J2,
-    wJ2J2, wrJ0, wrJ1, wrJ2, rho; their sums over N are its outputs."""
+    """Per-pair terms (..., W, 10, N) of K3a: wJ0J0, wJ0J1, wJ0J2, wJ1J1,
+    wJ1J2, wJ2J2, wrJ0, wrJ1, wrJ2, rho; their sums over N are its outputs.
+    ``mu`` and ``ndt_scale`` hold one value per member (...)."""
     mm, mc, am, ac, v = packed
+    mu, ndt_scale = _per_slot(mu), _per_slot(ndt_scale)
     c, s, tx, ty = _slot_pose(pose4)
     r2, q0, q1, q2, dth0, dth1, dS = _pair_terms(c, s, tx, ty, mm, mc, am, ac)
     dS00, dS01, dS02, dS11, dS12 = dS
-    w_valid = v[:, 0]
+    w_valid = v[..., 0, :]
 
     r = torch.sqrt(torch.clamp(r2, min=eps))
     qdSq = (q0 * (dS00 * q0 + dS01 * q1 + dS02 * q2)
@@ -169,41 +183,43 @@ def linearize_terms(pose4, mu, ndt_scale, packed, scale: float, alpha: float,
         wgt * J1 * J1, wgt * J1 * J2, wgt * J2 * J2,
         wr * J0, wr * J1, wr * J2,
         barron.rho(sq, scale, alpha, mu) * w_valid,
-    ], dim=1)
+    ], dim=-2)
 
 
 def sums_to_blocks(sums):
-    """(W, 10) sums -> H (W, 3, 3), g (W, 3), rho (W,)."""
-    h00, h01, h02, h11, h12, h22, g0, g1, g2, rho = sums.unbind(1)
-    H = torch.stack([torch.stack([h00, h01, h02], 1),
-                     torch.stack([h01, h11, h12], 1),
-                     torch.stack([h02, h12, h22], 1)], 1)
-    return H, torch.stack([g0, g1, g2], 1), rho
+    """(..., W, 10) sums -> H (..., W, 3, 3), g (..., W, 3), rho (..., W)."""
+    h00, h01, h02, h11, h12, h22, g0, g1, g2, rho = sums.unbind(-1)
+    H = torch.stack([torch.stack([h00, h01, h02], -1),
+                     torch.stack([h01, h11, h12], -1),
+                     torch.stack([h02, h12, h22], -1)], -2)
+    return H, torch.stack([g0, g1, g2], -1), rho
 
 
 def linearize_plain(pose4, mu, ndt_scale, packed, scale: float, alpha: float,
                     eps: float = 1e-12):
-    """K3a's plain version: per slot H (W, 3, 3), g (W, 3), rho (W,)."""
+    """K3a's plain version: per slot H (..., W, 3, 3), g (..., W, 3), rho
+    (..., W)."""
     return sums_to_blocks(linearize_terms(pose4, mu, ndt_scale, packed, scale,
                                           alpha, eps).sum(-1))
 
 
 def robust_cost_terms(pose4, mu, packed, scale: float, alpha: float,
                       eps: float = 1e-12):
-    """Per-pair (rho * valid, r^2 of the valid pairs else 0), each (W, N)."""
+    """Per-pair (rho * valid, r^2 of the valid pairs else 0), each
+    (..., W, N)."""
     mm, mc, am, ac, v = packed
     c, s, tx, ty = _slot_pose(pose4)
     r2 = _pair_terms(c, s, tx, ty, mm, mc, am, ac)[0]
-    w_valid = v[:, 0]
+    w_valid = v[..., 0, :]
     r = torch.sqrt(torch.clamp(r2, min=eps))
     sq = r * r
-    return (barron.rho(sq, scale, alpha, mu) * w_valid,
+    return (barron.rho(sq, scale, alpha, _per_slot(mu)) * w_valid,
             torch.where(w_valid > 0.0, sq, 0.0))
 
 
 def robust_cost_plain(pose4, mu, packed, scale: float, alpha: float,
                       eps: float = 1e-12):
-    """K3b's plain version: per slot rho sum (W,) and max r^2 (W,)."""
+    """K3b's plain version: per slot rho sum (..., W) and max r^2 (..., W)."""
     rho, sq = robust_cost_terms(pose4, mu, packed, scale, alpha, eps)
     return rho.sum(-1), sq.amax(-1)
 
@@ -227,7 +243,7 @@ def _fn(name):
         p, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
         n_out = 3 if name == "ndt_linearize_f32" else 2
         n_scalar = 2 if name == "ndt_linearize_f32" else 1
-        fn.argtypes = ([p] * (1 + n_scalar + 5 + n_out) + [i, i]
+        fn.argtypes = ([p] * (1 + n_scalar + 5 + n_out) + [i, i, i]
                        + [f, f, f, i, f, f, f] + [p])
         fn.restype = ctypes.c_int
     return fn
@@ -241,30 +257,33 @@ def _check(who, pose4, scalars, packed):
         raise ValueError(f"{who}: all tensors must be on one CUDA device")
     if any(t.dtype != torch.float32 for t in ts):
         raise TypeError(f"{who}: float32 tensors expected")
-    W, N = mm.shape[0], mm.shape[-1]
-    shapes = ((W, 3, N), (W, 6, N), (W, 3, N), (W, 6, N), (W, 1, N))
-    if pose4.shape != (W, 4) or tuple(t.shape for t in packed) != shapes:
-        raise ValueError(f"{who}: shapes pose4 (W, 4) and packs (W, 3|6|3|6|1, N) "
-                         f"expected")
-    if any(t.numel() != 1 for t in scalars):
-        raise ValueError(f"{who}: mu and ndt_scale must hold one value")
+    lead, (W, N) = mm.shape[:-3], (mm.shape[-3], mm.shape[-1])
+    shapes = tuple(lead + (W, ch, N) for ch in (3, 6, 3, 6, 1))
+    if len(lead) > 1 or pose4.shape != lead + (W, 4) \
+            or tuple(t.shape for t in packed) != shapes:
+        raise ValueError(f"{who}: shapes pose4 ([B,] W, 4) and packs "
+                         f"([B,] W, 3|6|3|6|1, N) expected")
+    if any(t.shape != lead for t in scalars):
+        raise ValueError(f"{who}: mu and ndt_scale must hold one value per member")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{who}: inputs must be contiguous")
-    return W, N
+    return lead, W, N
 
 
 def linearize_cuda(pose4, mu, ndt_scale, packed, scale: float, alpha: float,
                    eps: float = 1e-12):
-    """Launch K3a; raises on anything it does not take."""
-    W, N = _check("linearize_cuda", pose4, (mu, ndt_scale), packed)
-    H = torch.empty((W, 3, 3), dtype=torch.float32, device=pose4.device)
-    g = torch.empty((W, 3), dtype=torch.float32, device=pose4.device)
-    rho = torch.empty((W,), dtype=torch.float32, device=pose4.device)
+    """Launch K3a over all slots of all members; raises on anything it does
+    not take."""
+    lead, W, N = _check("linearize_cuda", pose4, (mu, ndt_scale), packed)
+    H = pose4.new_empty(lead + (W, 3, 3))
+    g = pose4.new_empty(lead + (W, 3))
+    rho = pose4.new_empty(lead + (W,))
     stream = torch.cuda.current_stream(pose4.device).cuda_stream
     err = _fn("ndt_linearize_f32")(
         pose4.data_ptr(), mu.data_ptr(), ndt_scale.data_ptr(),
         *(t.data_ptr() for t in packed), H.data_ptr(), g.data_ptr(),
-        rho.data_ptr(), W, N, *_barron_args(scale, alpha, eps), stream)
+        rho.data_ptr(), math.prod(lead) * W, W, N,
+        *_barron_args(scale, alpha, eps), stream)
     if err != 0:
         raise RuntimeError(f"ndt_linearize kernel launch failed: CUDA error {err}")
     build.LAUNCHES["ndt_linearize"] += 1
@@ -273,14 +292,15 @@ def linearize_cuda(pose4, mu, ndt_scale, packed, scale: float, alpha: float,
 
 def robust_cost_cuda(pose4, mu, packed, scale: float, alpha: float,
                      eps: float = 1e-12):
-    """Launch K3b; raises on anything it does not take."""
-    W, N = _check("robust_cost_cuda", pose4, (mu,), packed)
-    rho = torch.empty((W,), dtype=torch.float32, device=pose4.device)
-    r2max = torch.empty((W,), dtype=torch.float32, device=pose4.device)
+    """Launch K3b over all slots of all members; raises on anything it does
+    not take."""
+    lead, W, N = _check("robust_cost_cuda", pose4, (mu,), packed)
+    rho = pose4.new_empty(lead + (W,))
+    r2max = pose4.new_empty(lead + (W,))
     stream = torch.cuda.current_stream(pose4.device).cuda_stream
     err = _fn("ndt_robust_cost_f32")(
         pose4.data_ptr(), mu.data_ptr(), *(t.data_ptr() for t in packed),
-        rho.data_ptr(), r2max.data_ptr(), W, N,
+        rho.data_ptr(), r2max.data_ptr(), math.prod(lead) * W, W, N,
         *_barron_args(scale, alpha, eps), stream)
     if err != 0:
         raise RuntimeError(f"ndt_robust_cost kernel launch failed: CUDA error {err}")
@@ -288,10 +308,21 @@ def robust_cost_cuda(pose4, mu, packed, scale: float, alpha: float,
     return rho, r2max
 
 
+def _per_member(who, poses, *scalars):
+    """Refuse a scalar that is not one value per member of ``poses``
+    (..., W, 3): broadcast, it would give every output the wrong shape."""
+    if any(t.shape != poses.shape[:-2] for t in scalars):
+        raise ValueError(f"{who}: mu and ndt_scale must have the batch shape "
+                         f"{tuple(poses.shape[:-2])}")
+
+
 def linearize(poses, mu, ndt_scale, packed, scale: float, alpha: float,
               eps: float = 1e-12):
-    """Per-slot normal-equation blocks: poses (W, 3), packed from
-    :func:`pack_pairs`.  Returns (H (W, 3, 3), g (W, 3), rho_sum ())."""
+    """Per-slot normal-equation blocks: poses (..., W, 3), packed from
+    :func:`pack_pairs`, ``mu`` and ``ndt_scale`` (...).  Returns (H (..., W,
+    3, 3), g (..., W, 3), rho_sum (...)), the rho sum over each member's
+    slots."""
+    _per_member("linearize", poses, mu, ndt_scale)
     pose4 = pose_inputs(poses)
     if pose4.device.type == "cuda":
         H, g, rho = linearize_cuda(pose4, mu, ndt_scale, packed, scale, alpha, eps)
@@ -299,13 +330,14 @@ def linearize(poses, mu, ndt_scale, packed, scale: float, alpha: float,
         H, g, rho = linearize_plain(pose4, mu, ndt_scale, packed, scale, alpha, eps)
     else:
         raise ValueError(f"linearize: unsupported device {pose4.device}")
-    return H, g, rho.sum()
+    return H, g, rho.sum(-1)
 
 
 def robust_cost(poses, mu, packed, scale: float, alpha: float,
                 eps: float = 1e-12):
-    """Residual-only pass: (rho_sum (), r2max ()) over all slots' valid
-    pairs."""
+    """Residual-only pass: (rho_sum (...), r2max (...)) over each member's
+    slots' valid pairs."""
+    _per_member("robust_cost", poses, mu)
     pose4 = pose_inputs(poses)
     if pose4.device.type == "cuda":
         rho, r2max = robust_cost_cuda(pose4, mu, packed, scale, alpha, eps)
@@ -313,4 +345,4 @@ def robust_cost(poses, mu, packed, scale: float, alpha: float,
         rho, r2max = robust_cost_plain(pose4, mu, packed, scale, alpha, eps)
     else:
         raise ValueError(f"robust_cost: unsupported device {pose4.device}")
-    return rho.sum(), r2max.amax()
+    return rho.sum(-1), r2max.amax(-1)

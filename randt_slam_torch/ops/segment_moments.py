@@ -13,6 +13,11 @@ so the multi-channel moment reduction only covers those ``k`` segments:
 3. the moment pass over those ``k`` segments -- the kernel on CUDA tensors,
    :func:`topi_moments_plain` on CPU tensors.
 
+A leading batch axis is optional: values (B, P, CH), ids (B, P) give
+(B, k, CH) and (B, k), each scan's counts, order and sums its own (one
+``index_add`` over member-offset ids, one sort along the last axis, one
+kernel launch with a grid axis over the scans).
+
 :func:`segment_moments` (K5, ``csrc/segment_sum.cu``): the full segment sum
 behind ``ndt/cells.from_points``.  On a CUDA tensor the whole function is
 one kernel launch: each of a cluster's blocks sums its stretch of the
@@ -25,6 +30,7 @@ as the caller has them (int32 or int64).  CPU tensors take
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -38,15 +44,32 @@ MAX_POINTS = 1 << 17
 MAX_SEGMENTS = 1 << 16
 
 
+def _member_ids(ids, num_segments: int):
+    """Ids outside [0, num_segments) set to num_segments, as int64; with a
+    batch axis, member b's shifted by b * (num_segments + 1) so that one
+    flat segment sum keeps the members apart."""
+    ok = (ids >= 0) & (ids < num_segments)
+    safe = torch.where(ok, ids, num_segments).long()
+    if ids.dim() > 1:
+        n = num_segments + 1
+        safe = safe + torch.arange(0, ids.shape[0] * n, n,
+                                   device=ids.device)[:, None]
+    return safe.reshape(-1)
+
+
 def topi_moments_plain(values, ids, topi, num_segments: int):
     """out[s] = sum_p [ids[p] == topi[s]] values[p] as the JAX package's plain
     path computes it: the full segment sum, then the rows of ``topi``.
-    ``ids`` outside [0, num_segments) are dropped."""
-    ok = (ids >= 0) & (ids < num_segments)
-    safe = torch.where(ok, ids, num_segments).long()
+    ``ids`` outside [0, num_segments) are dropped.  values (..., P, CH),
+    ids (..., P), topi (..., k)."""
+    CH = values.shape[-1]
     full = runtime.index_add(
-        values.new_zeros((num_segments + 1, values.shape[1])), safe, values)
-    return full[:num_segments][topi.long()]
+        values.new_zeros((math.prod(ids.shape[:-1]) * (num_segments + 1), CH)),
+        _member_ids(ids, num_segments), values.reshape(-1, CH))
+    if ids.dim() == 1:
+        return full[:num_segments][topi.long()]
+    full = full.reshape(ids.shape[0], num_segments + 1, CH)
+    return torch.gather(full, 1, topi.long()[..., None].expand(*topi.shape, CH))
 
 
 def _lib():
@@ -54,33 +77,38 @@ def _lib():
     fn = lib.topi_moments_f32
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
+        fn.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def topi_moments_cuda(values, ids, topi):
-    """Launch the K2 moment kernel.  ``ids`` (P,) int32 with -1 for dropped
-    points, ``topi`` (k,) int32 segment ids; raises on anything else."""
+    """Launch the K2 moment kernel on values (P, CH), ids (P,) int32 with -1
+    for dropped points and topi (k,) int32 segment ids, or a batch of them
+    (B, P, CH), (B, P), (B, k); raises on anything else."""
     if not (values.is_cuda and ids.device == values.device
             and topi.device == values.device):
         raise ValueError("topi_moments_cuda: all tensors must be on one CUDA device")
     if values.dtype != torch.float32 or ids.dtype != torch.int32 \
             or topi.dtype != torch.int32:
         raise TypeError("topi_moments_cuda: float32 values, int32 ids and topi")
-    if values.dim() != 2 or ids.shape != (values.shape[0],) or topi.dim() != 1:
-        raise ValueError("topi_moments_cuda: shapes (P, CH), (P,), (k,) expected")
-    if not 1 <= values.shape[1] <= MAX_CHANNELS:
+    if values.dim() not in (2, 3) or ids.shape != values.shape[:-1] \
+            or topi.dim() != ids.dim() or topi.shape[:-1] != ids.shape[:-1]:
+        raise ValueError("topi_moments_cuda: shapes (P, CH), (P,), (k,) or "
+                         "(B, P, CH), (B, P), (B, k) expected")
+    if not 1 <= values.shape[-1] <= MAX_CHANNELS:
         raise ValueError(f"topi_moments_cuda: 1 <= CH <= {MAX_CHANNELS}")
     if not (values.is_contiguous() and ids.is_contiguous()
             and topi.is_contiguous()):
         raise ValueError("topi_moments_cuda: inputs must be contiguous")
-    P, CH = values.shape
-    k = topi.shape[0]
-    out = torch.empty((k, CH), dtype=torch.float32, device=values.device)
+    P, CH = values.shape[-2:]
+    k = topi.shape[-1]
+    B = values.shape[0] if values.dim() == 3 else 1
+    out = values.new_empty(topi.shape + (CH,))
     stream = torch.cuda.current_stream(values.device).cuda_stream
     err = _lib()(values.data_ptr(), ids.data_ptr(), topi.data_ptr(),
-                 out.data_ptr(), P, CH, k, stream)
+                 out.data_ptr(), B, P, CH, k, stream)
     if err != 0:
         raise RuntimeError(f"segment_topk_moments kernel launch failed: CUDA error {err}")
     build.LAUNCHES["segment_topk_moments"] += 1
@@ -88,16 +116,17 @@ def topi_moments_cuda(values, ids, topi):
 
 
 def segment_topk_moments(values, ids, num_segments: int, k: int):
-    """Reduce ``values`` (P, CH) into the ``k`` segments with the largest
-    channel-0 sums: returns ``(out (k, CH), seg_ids (k,))`` ordered by
-    descending count."""
+    """Reduce ``values`` (..., P, CH) into the ``k`` segments with the
+    largest channel-0 sums: returns ``(out (..., k, CH), seg_ids (..., k))``
+    ordered by descending count, per scan of a batch."""
     ok = (ids >= 0) & (ids < num_segments)
-    safe = torch.where(ok, ids, num_segments).long()
     # Channel 0 holds 0/1 point weights: the float sums are exact integers,
     # identical in any order, so the plain scatter-add is reproducible here.
-    counts = torch.index_add(values.new_zeros(num_segments + 1), 0, safe,
-                             values[:, 0])[:num_segments]
-    topi = torch.sort(counts, descending=True, stable=True)[1][:k]
+    counts = torch.index_add(
+        values.new_zeros(math.prod(ids.shape[:-1]) * (num_segments + 1)), 0,
+        _member_ids(ids, num_segments), values[..., 0].reshape(-1))
+    counts = counts.reshape(ids.shape[:-1] + (num_segments + 1,))[..., :num_segments]
+    topi = torch.sort(counts, dim=-1, descending=True, stable=True)[1][..., :k]
     if values.device.type == "cuda":
         ids32 = torch.where(ok, ids, -1).to(torch.int32)
         out = topi_moments_cuda(values.contiguous(), ids32,

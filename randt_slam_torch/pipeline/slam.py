@@ -89,9 +89,10 @@ def frames_from_arrays(intensity, azimuths, ranges, stamps, imu_yaw=None,
     )
 
 
-def _stack_leaf(values) -> np.ndarray:
+def _stack_leaf(values, batch: int | None = None) -> np.ndarray:
     """Stack one output field over frames: tensors in one device copy,
-    host values as they are."""
+    host values as they are; with a batch (tensors (B, ...)), host values
+    (shared by the members) repeated over it, and the result (B, T, ...)."""
     out = [None] * len(values)
     dev = [i for i, v in enumerate(values) if isinstance(v, torch.Tensor)]
     if dev:
@@ -101,15 +102,18 @@ def _stack_leaf(values) -> np.ndarray:
     for i, v in enumerate(values):
         if out[i] is None:
             out[i] = np.asarray(v)
-    return np.stack(out)
+            if batch is not None:
+                out[i] = np.broadcast_to(out[i], (batch,) + out[i].shape)
+    return np.stack(out) if batch is None else np.stack(out, axis=1)
 
 
-def stack_outputs(outs: list) -> F.FrameOutput:
-    """Per-frame outputs -> one FrameOutput of numpy (T, ...) arrays."""
+def stack_outputs(outs: list, batch: int | None = None) -> F.FrameOutput:
+    """Per-frame outputs -> one FrameOutput of numpy (T, ...) arrays, or
+    (B, T, ...) for the outputs of a batch of ``batch`` sequences."""
     def field(name, rec=None):
         vals = [getattr(o, name) if rec is None else getattr(getattr(o, rec), name)
                 for o in outs]
-        return None if vals[0] is None else _stack_leaf(vals)
+        return None if vals[0] is None else _stack_leaf(vals, batch)
 
     nodes = F.NodeRecord(*(field(k, "nodes") for k in F.NodeRecord._fields))
     edges = F.EdgeRecord(*(field(k, "edges") for k in F.EdgeRecord._fields))

@@ -93,6 +93,12 @@ def test_entry_points_need_a_device_without_cuda():
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         OnlineSlam(cfg)
+    from randt_slam_torch.parallel import batch
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        batch.init_batched_carry(cfg, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        batch.make_batched_scan(cfg, np.zeros(3))
 
 
 @pytest.mark.parametrize("preset", ["synthetic_config", "oxford_config",

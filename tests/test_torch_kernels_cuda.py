@@ -57,6 +57,14 @@ PyTorch is installed:
 * ``OnlineSlam`` on the card: the CPU's tables, poses within 1e-2 m /
   1e-3 rad of the CPU's; resumed from its own checkpoint, bitwise the
   uninterrupted run.
+* The batch axis of ``parallel/batch``: K1, K2 and K3a/K3b with B in
+  {1, 3} (members with different range rows, segment populations,
+  valid-pair counts, mu and NDT scale) against their batched plain
+  versions, each member bitwise its unbatched launch; K4 on B in {1, 3, 16}
+  window systems (P = 36); a batched odometry run of three sequences
+  launches each kernel as one sequence does, and each member has its
+  single card run's tables and poses within ``tests/test_torch_batch.py``'s
+  free-running bands.
 """
 
 import dataclasses
@@ -720,3 +728,163 @@ def test_online_card_against_cpu_and_resume(dev, tmp_path):
     assert again._count_grids.keys() == card._count_grids.keys()
     for k, g in card._count_grids.items():
         assert torch.equal(again._count_grids[k], g)
+
+
+# ---- the batch axis (parallel/batch: B sequences in one launch) -------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3])
+def test_batched_row_windows(dev, B):
+    """Each row reads its own scan's range row: bitwise the plain version
+    and each member's unbatched launch."""
+    rng = np.random.default_rng(20 + B)
+    A, R, win = 400, 1221, 65
+    img = torch.from_numpy(rng.random((B, A, R), dtype=np.float32)).to(dev)
+    rr = torch.from_numpy(rng.random((B, R), dtype=np.float32)).to(dev)
+    starts = torch.from_numpy(rng.integers(-win - 3, R + 3, (B, A))).to(dev)
+    k = K1.row_windows(img, rr, starts, win)
+    p = K1.row_windows_plain(img, rr, starts, win)
+    one = [K1.row_windows(img[b], rr[b], starts[b], win) for b in range(B)]
+    torch.cuda.synchronize()
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    for b in range(B):
+        assert torch.equal(k[0][b], one[b][0]) and torch.equal(k[1][b], one[b][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3])
+def test_batched_segment_topk(dev, B):
+    """Members with different segment populations (dense, few segments,
+    every point dropped): the CPU path's top-k per member, moments within
+    1e-5 of their scale, each member bitwise its unbatched launch."""
+    rng = np.random.default_rng(30 + B)
+    P, S, k = 26000, 3249, 512
+    vals = rng.normal(0, 30, (B, P, 13)).astype(np.float32)
+    vals[..., 0] = (rng.random((B, P)) < 0.3).astype(np.float32)
+    ids = np.stack([rng.integers(-1, S + 1, P), rng.integers(0, 40, P),
+                    np.full(P, S)][:B])
+    values = torch.from_numpy(vals).to(dev)
+    ids_t = torch.from_numpy(ids).to(dev)
+    out, topi = K2.segment_topk_moments(values, ids_t, S, k)
+    plain = K2.topi_moments_plain(values, ids_t, topi, S)
+    scale = K2.topi_moments_plain(values.abs(), ids_t, topi, S)
+    _, topi_cpu = K2.segment_topk_moments(values.cpu(), ids_t.cpu(), S, k)
+    one = [K2.segment_topk_moments(values[b], ids_t[b], S, k) for b in range(B)]
+    torch.cuda.synchronize()
+    assert torch.equal(topi.cpu(), topi_cpu)
+    assert bool(((out - plain).abs() <= 1e-5 * scale).all())
+    for b in range(B):
+        assert torch.equal(out[b], one[b][0]) and torch.equal(topi[b], one[b][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [-2.0, 0.0])
+@pytest.mark.parametrize("B", [1, 3])
+def test_batched_ndt_linearize(dev, alpha, B):
+    """Per-member mu and NDT scale, members with different valid-pair
+    counts: within 1e-4 of each output's scale of the batched plain
+    version; each member's slots bitwise its unbatched launch; the wrappers'
+    rho, cost and max per member."""
+    rng = np.random.default_rng(40 + B)
+    W, N = 3, 2048
+    sets = [_pairs(rng, W, N, dev) for _ in range(B)]
+    for b, (_, packed) in enumerate(sets):  # member b keeps a share of its pairs
+        packed[4].mul_((torch.rand(packed[4].shape, device=dev) < (b + 1) / B).float())
+    pose4 = torch.stack([s[0] for s in sets])
+    packed = tuple(torch.stack([s[1][i] for s in sets]) for i in range(5))
+    mu = torch.tensor([1.0, 4.0, 30.0][:B], device=dev)
+    ns = torch.tensor([0.1, 0.37, 2.0][:B], device=dev)
+    H, g, rho = K3.linearize_cuda(pose4, mu, ns, packed, 1.0, alpha)
+    Hp, gp, rhop = K3.linearize_plain(pose4, mu, ns, packed, 1.0, alpha)
+    Hs, gs, rhos = K3.sums_to_blocks(
+        K3.linearize_terms(pose4, mu, ns, packed, 1.0, alpha).abs().sum(-1))
+    c, m = K3.robust_cost_cuda(pose4, mu, packed, 1.0, alpha)
+    cp, mp = K3.robust_cost_plain(pose4, mu, packed, 1.0, alpha)
+    cs = K3.robust_cost_terms(pose4, mu, packed, 1.0, alpha)[0].abs().sum(-1)
+    one = [(K3.linearize_cuda(pose4[b], mu[b], ns[b], sets[b][1], 1.0, alpha),
+            K3.robust_cost_cuda(pose4[b], mu[b], sets[b][1], 1.0, alpha))
+           for b in range(B)]
+    poses = torch.stack([pose4[..., 0], pose4[..., 1],
+                         torch.atan2(pose4[..., 3], pose4[..., 2])], -1)
+    wrapped = (K3.linearize(poses, mu, ns, packed, 1.0, alpha),
+               K3.robust_cost(poses, mu, packed, 1.0, alpha))
+    torch.cuda.synchronize()
+    assert H.shape == (B, W, 3, 3) and c.shape == (B, W)
+    for a, b_, sc in ((H, Hp, Hs), (g, gp, gs), (rho, rhop, rhos), (c, cp, cs)):
+        assert bool(((a - b_).abs() <= 1e-4 * sc).all()), (a - b_).abs().max()
+    assert bool(((m - mp).abs() <= 1e-5 * mp).all())
+    for b, ((Hb, gb, rb), (cb, mb)) in enumerate(one):
+        assert torch.equal(H[b], Hb) and torch.equal(g[b], gb) and torch.equal(rho[b], rb)
+        assert torch.equal(c[b], cb) and torch.equal(m[b], mb)
+    assert wrapped[0][2].shape == wrapped[1][0].shape == wrapped[1][1].shape == (B,)
+    assert bool(((wrapped[1][0] - cp.sum(-1)).abs() <= 1e-4 * cs.sum(-1)).all())
+    assert bool(((wrapped[1][1] - mp.amax(-1)).abs() <= 1e-5 * mp.amax(-1)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 16])
+def test_batched_chol_solve_window_systems(dev, B):
+    """The batched LM loop's systems (P = 36, up to 16 members): one launch
+    bitwise each member's unbatched launch, within the float32 Cholesky
+    bound of a float64 solve."""
+    rng = np.random.default_rng(50 + B)
+    lams = (1e-4, 1e-2, 1.0, 1e2)
+    systems = [_system(rng, 36, lams[i % len(lams)]) for i in range(B)]
+    A = torch.tensor(np.stack([s[0] for s in systems]), dtype=torch.float32, device=dev)
+    b = torch.tensor(np.stack([s[1] for s in systems]), dtype=torch.float32, device=dev)
+    x = K4.chol_solve(A, b)
+    one = [K4.chol_solve(A[i].contiguous(), b[i].contiguous()) for i in range(B)]
+    x64 = torch.linalg.solve(A.double(), b.double())
+    kappa = torch.linalg.cond(A.double())
+    torch.cuda.synchronize()
+    assert all(torch.equal(x[i], one[i]) for i in range(B))
+    bound = (4 * 36 * float(np.finfo(np.float32).eps) * kappa
+             * x64.abs().amax(-1))[:, None]
+    assert bool(((x.double() - x64).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("switches", list(SWITCHES))
+def test_batched_odometry_launches_once_per_batched_frame(dev, switches):
+    """Three sequences in one batched run launch what one sequence does;
+    each member has its single card run's tables and poses within the CPU
+    tests' free-running bands (``tests/test_torch_batch.py``)."""
+    from randt_slam_torch.config import synthetic_config
+    from randt_slam_torch.io import synthetic
+    from randt_slam_torch.parallel import batch
+    from randt_slam_torch.pipeline import frontend as F
+    from randt_slam_torch.pipeline import slam
+
+    cfg = synthetic_config(**SWITCHES[switches])
+    T = 8
+    lists = []
+    for seed in (3, 4, 5):
+        seq = synthetic.generate(seed=seed, n_frames=T, n_azimuths=256, n_bins=256)
+        lists.append(slam.frames_from_arrays(seq.intensity, seq.azimuths, seq.ranges,
+                                             seq.stamps, device=dev))
+    frames = F.Frame(*(torch.stack(x) for x in zip(*lists)))
+    build.reset_launches()
+    _, outs = batch.make_batched_scan(cfg, np.zeros(3), device=dev)(
+        batch.init_batched_carry(cfg, 3, device=dev), frames)
+    solves = T - 1 if switches == "on" else 0
+    m = cfg.matcher
+    assert build.LAUNCHES == {
+        "row_windows": T, "segment_topk_moments": T, "segment_moments": 0,
+        "ndt_linearize": solves * m.gnc_steps * m.lm_max_iterations,
+        "ndt_robust_cost": solves * (2 + m.gnc_steps * (1 + m.lm_max_iterations)),
+        "chol_solve": solves * m.gnc_steps * m.lm_max_iterations,
+    }
+    for b, fr in enumerate(lists):
+        single = slam.run_odometry(cfg, fr, device=dev)
+        mine = F.FrameOutput(*(None if x is None else
+                               (type(x)(*(y[b] for y in x)) if isinstance(x, tuple)
+                                else x[b]) for x in outs))
+        tab = slam._unstack_outputs(mine)
+        for k in ("node_id", "node_frame", "node_submap", "node_is_root",
+                  "edge_begin", "edge_end"):
+            assert np.array_equal(tab[k], getattr(single, k)), k
+        d = np.abs(mine.odom_pose - single.odom_poses)
+        assert d[:, :2].max() <= 0.1 and d[:, 2].max() <= 5e-3, d.max(0)
+        print(f"switches {switches}, member {b}: within {d[:, :2].max():.2e} m, "
+              f"{d[:, 2].max():.2e} rad of its single card run")

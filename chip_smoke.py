@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--save-slam-graph PATH]
+    python3 chip_smoke.py --multi-device PATH    # phases 1, 2 and 12 alone
 
 Five paths of the port run at the Oxford configuration, and two modules
 between them: offline odometry with the kernel switches off
@@ -15,7 +16,9 @@ full sequence's size, then online SLAM (``OnlineSlam``: the same front
 end with loop search, the pose graph re-anchoring the active submap and
 raytracing on their cadences, checkpoint and resume), and last batched
 odometry (``parallel/batch``: B drives per card in one front end, each
-kernel taking the whole batch in one launch).  The full segment
+kernel taking the whole batch in one launch), and multi-device runs of
+batched odometry and of both pose-graph routes (``parallel/mesh``: one
+process per rank).  The full segment
 sum K5 has no pipeline caller; its entry point is ``ndt/cells.from_points``.
 
 Phases (any failed check raises and the script exits non-zero):
@@ -120,7 +123,30 @@ Phases (any failed check raises and the script exits non-zero):
    then K1, K2, K3a, K3b and K4 on one frame's batched inputs of the
    largest batch against their batched plain versions (the tolerances of
    phase 3), B = 1 bitwise equal to the unbatched launch, and their times
-   and bounds at that batch.
+   and bounds at that batch;
+12. multi-device: the script re-runs itself as the ranks of a world
+   (``--md-rank``; the kernels were built once, in phase 2), one rank per
+   card under NCCL and, on one card, a 2-rank gloo world whose ranks share
+   it (collectives staged through the host); a rank that fails fails the
+   run.  Per world: (a) ``make_batched_scan`` with the group over phase
+   11's 8 drives x 30 frames (switches on): fleet frames/s (B x frames
+   20-29 over the slowest rank's wall) beside phase 11's B = 8 run in this
+   call, each rank's launches exactly one sequence's, every member's tables
+   identical to phase 11's B = 8 run and its poses within ``BATCH_BANDS``,
+   every rank the same gathered outputs, and in the 2-rank world rank 0's
+   drives 0-3 bitwise phase 11's B = 4 run; (b) ``optimize_auto`` with the
+   group on ``bench.py``'s 4077-node graph at ``max_iterations=10`` (the
+   sharded Schur route): phase 9's iteration count, finite poses equal on
+   every rank, their gap to phase 9's (or "bitwise"), ms per iteration beside
+   phase 9's and beside the unsharded solve in the rank's own process, the
+   bytes all-gathered per iteration; (c) ``optimize_distributed`` on phase
+   7's pose graph: within ``MD_DENSE_BAND`` of ``pose_graph.optimize`` and
+   ``MD_ONE_RANK_BAND`` of rank 0 alone, ms per iteration, the bytes
+   all-reduced; (d) per rank the seconds from the spawn to its start, its
+   imports, ``init_distributed`` and its first collective.
+   ``--save-slam-graph`` writes phase 7's pose graph, which
+   ``--multi-device`` reads to run phase 12 alone (with its references
+   made anew) on a machine of several cards.
 
 The second-to-last line of the output is the kernels' JSON record, the last
 line ``{"ok": true, "device": {...}}``.
@@ -200,14 +226,21 @@ K2_BLOCK_PER_SEGMENT_US = 27.49
 # N_BATCH_OFF frames (steady from BATCH_OFF_STEADY); every member is held
 # against a single-sequence run of its first N_BATCH_CHECK frames within
 # tests/test_torch_batch.py's free-running bands (ATE gap, headings,
-# positions)
-BATCH_SIZES = (1, 2, 4, 8)
+# positions); B = 2 and three of the checked frames were cut when phase 12
+# joined (the batch curve stays with scripts/torch_batch_curve.py)
+BATCH_SIZES = (1, 4, 8)
 N_BATCH = 30
 BATCH_OFF_B = 4
 N_BATCH_OFF = 16
 BATCH_OFF_STEADY = 8
-N_BATCH_CHECK = 8
+N_BATCH_CHECK = 5
 BATCH_BANDS = (1e-2, 5e-3, 1e-1)
+# multi-device (phase 12): the sharded dense pose graph against
+# pose_graph.optimize (tests/test_multichip.py's band) and against one rank
+# (m); a world's time limit (s)
+MD_DENSE_BAND = 5e-3
+MD_ONE_RANK_BAND = 1e-5
+MD_TIMEOUT = 600
 # and K1's (a block per row behind an int32 cast of the starts) and K5's
 # (a plain stable sort, binary search and casts before a kernel over the
 # runs), their whole calls
@@ -1353,7 +1386,7 @@ def schur_phase(dev, smi):
         if not (m <= SCHUR_BAND[0] and rad <= SCHUR_BAND[1]):
             raise AssertionError(f"Schur solve off {what} beyond the band")
     return dict(steady_ms=steady * 1e3, iterations=its, ms_per_iteration=steady * 1e3 / its,
-                max10_ms=wall10 * 1e3)
+                max10_ms=wall10 * 1e3, max10_poses=b10, max10_iterations=its10)
 
 
 def ogm_phase(cfg, res, frames, dev):
@@ -1640,11 +1673,13 @@ def member_outputs(outs, b, n):
     return take(outs)
 
 
-def batch_run(cfg, frames_b, steady_from, dev, on_frame=None):
-    """One ``make_batched_scan`` run of ``frames_b`` (B, T, ...): returns the
-    outputs, the launch counts, the window solves, the steady ms per batched
-    frame (frames ``steady_from`` to the end, timed inside the run, the
-    device drained at its start), the fleet frames/s and the peak device
+def batch_run(cfg, frames_b, steady_from, dev, on_frame=None, group=None):
+    """One ``make_batched_scan`` run of ``frames_b`` (B, T, ...), sharded
+    over ``group`` if one is given: returns the outputs (all B members),
+    this process's launch counts and window solves, the steady ms per
+    batched frame (frames ``steady_from`` to the end, timed inside the run,
+    the device drained at its start, the gather of a sharded run included),
+    the fleet frames/s (B x frames / that wall) and the peak device
     memory."""
     import torch
 
@@ -1661,8 +1696,8 @@ def batch_run(cfg, frames_b, steady_from, dev, on_frame=None):
             torch.cuda.synchronize()
         marks.append(time.perf_counter())
 
-    scan = batch.make_batched_scan(cfg, np.zeros(3), device=dev)
-    carries = batch.init_batched_carry(cfg, B, device=dev)
+    scan = batch.make_batched_scan(cfg, np.zeros(3), device=dev, group=group)
+    carries = batch.init_batched_carry(cfg, B, device=dev, group=group)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     with counting_solves() as solves:
@@ -1825,11 +1860,25 @@ def check_batched_kernels(k1b, k2b, lin, chol, cfg, dev):
     return out
 
 
+def batch_drives(drive0):
+    """Phase 11's drives: ``drive0`` (phase 4's: scans, az, ranges, stamps,
+    gt) and ``render_frames`` seeds 1.. up to the largest batch, each
+    N_BATCH frames, as (scans, stamps, gt)."""
+    scans0, _, _, stamps0, gt0 = drive0
+    drives = [(scans0[:N_BATCH], stamps0[:N_BATCH], gt0[:N_BATCH])]
+    for i in range(1, max(BATCH_SIZES)):
+        sc, _, _, st, gt = render_frames(N_BATCH, seed=i)
+        drives.append((sc, st, gt))
+    return drives
+
+
 def batch_phase(cfg_on, cfg_off, drive0, dev, smi):
     """Phase 11: batched odometry, B distinct drives per card through
     ``parallel/batch.make_batched_scan``; ``drive0`` is phase 4's drive
     (scans, az, ranges, stamps, gt).  Returns the kernels' times and bounds
-    at the largest B (:func:`check_batched_kernels`)."""
+    at the largest B (:func:`check_batched_kernels`), the drives and the
+    switches-on runs by B (outputs, fleet frames/s), which phase 12 is held
+    to."""
     import torch
 
     from randt_slam_torch.io import formats
@@ -1837,13 +1886,10 @@ def batch_phase(cfg_on, cfg_off, drive0, dev, smi):
     from randt_slam_torch.pipeline import frontend as F
     from randt_slam_torch.pipeline import slam
 
-    scans0, az, ranges, stamps0, gt0 = drive0
+    _, az, ranges, _, _ = drive0
     b_max = max(BATCH_SIZES)
     t0 = time.perf_counter()
-    drives = [(scans0[:N_BATCH], stamps0[:N_BATCH], gt0[:N_BATCH])]
-    for i in range(1, b_max):
-        sc, _, _, st, gt = render_frames(N_BATCH, seed=i)
-        drives.append((sc, st, gt))
+    drives = batch_drives(drive0)
     frames = [slam.frames_from_arrays(sc, az, ranges, st, device=dev)
               for sc, st, _ in drives]
     print(f"phase 11, batched odometry ({smi}): {b_max} drives of {N_BATCH} frames "
@@ -1931,7 +1977,7 @@ def batch_phase(cfg_on, cfg_off, drive0, dev, smi):
               f"{max(gaps):.2e} m, first frame with other bits per member "
               f"{first_bits}; ATE per member {[round(a, 4) for a in ates]} m (band < "
               f"{ATE_BAND_M} m)", flush=True)
-        return (lin, chol), dict(ms=ms, fps=fps, peak=peak)
+        return (lin, chol), dict(ms=ms, fps=fps, peak=peak, outs=outs)
 
     record = {}
     for B in BATCH_SIZES:
@@ -1947,35 +1993,386 @@ def batch_phase(cfg_on, cfg_off, drive0, dev, smi):
           + "; ".join(f"B={B} {record[('on', B)]['fps']:.3f} "
                       f"({record[('on', B)]['fps'] / base:.2f}x)" for B in BATCH_SIZES),
           flush=True)
-    return kernels
+    return kernels, drives, {B: record[("on", B)] for B in BATCH_SIZES}
 
 
-def main() -> int:
-    t_start = time.perf_counter()
+def flat_outputs(outs) -> dict:
+    """A (B, T, ...) FrameOutput of numpy arrays as a flat dict of arrays."""
+    out = {}
+    for k, v in outs._asdict().items():
+        if isinstance(v, tuple):
+            out.update({f"{k}.{kk}": vv for kk, vv in v._asdict().items()})
+        elif v is not None:
+            out[k] = np.asarray(v)
+    return out
+
+
+def unflat_outputs(d):
+    """The inverse of :func:`flat_outputs`."""
+    from randt_slam_torch.pipeline import frontend as F
+
+    def rec(cls, name):
+        return cls(**{k: d[f"{name}.{k}"] for k in cls._fields})
+    rest = {k: d.get(k) for k in F.FrameOutput._fields if k not in ("nodes", "edges")}
+    return F.FrameOutput(nodes=rec(F.NodeRecord, "nodes"), edges=rec(F.EdgeRecord, "edges"),
+                         **rest)
+
+
+def md_rank(tmp, backend, world, spawned) -> int:
+    """One rank of a phase-12 world, run as ``chip_smoke.py --md-rank TMP
+    BACKEND W SPAWNED`` with ``RANDT_*`` set: (a) the sharded batch of the
+    drives in ``TMP/inputs.npz``, (b) the sharded Schur solve of
+    ``bench.py``'s graph at ``max_iterations=10``, (c) the edge-sharded
+    dense solve of phase 7's pose graph (and of rank 0 alone), (d) the
+    seconds from the spawn to this process's start, of its
+    imports, of its ``init_distributed`` and of its first collective.  Writes
+    ``TMP/<backend><W>_rank<r>.{json,npz}``; any failed check raises."""
+    import hashlib
+    import os
+
+    t_start = time.time()
+    import torch
+    import torch.distributed as dist
+
+    from randt_slam_torch import runtime
+    from randt_slam_torch.config import GlobalFuserConfig, oxford_config
+    from randt_slam_torch.graph import pose_graph as PG
+    from randt_slam_torch.graph import schur
+    from randt_slam_torch.parallel import mesh
+    from randt_slam_torch.pipeline import frontend as F
+    from randt_slam_torch.pipeline import slam
+
+    t0 = time.time()
+    import_s = t0 - t_start
+    if not mesh.init_distributed(backend=backend):
+        # one rank: init_distributed is a no-op there, as in the JAX package;
+        # join a group of one all the same, so the backend's init and its
+        # collectives run
+        torch.cuda.set_device(0)
+        dist.init_process_group(backend, init_method="tcp://" + os.environ["RANDT_COORDINATOR"],
+                                world_size=1, rank=0)
+    init_s = time.time() - t0
+    dev = runtime.resolve_device(None)
+    group = mesh.data_group()
+    rank = dist.get_rank()
+    t0 = time.time()
+    mesh.all_reduce_sum(torch.ones(1, device=dev), group)
+    torch.cuda.synchronize()
+    res = dict(rank=rank, device=str(dev), spawn_s=t_start - spawned, import_s=import_s,
+               init_s=init_s, first_s=time.time() - t0)
+    data = np.load(os.path.join(tmp, "inputs.npz"))
+    arrays = {}
+
+    # (a) the sharded batch, the ranks started together
+    scans, stamps = data["scans"], data["stamps"]
+    members = [slam.frames_from_arrays(scans[b], data["az"], data["ranges"], stamps[b],
+                                       device="cpu") for b in range(len(scans))]
+    frames = F.Frame(*(torch.stack(x) for x in zip(*members)))
+    del members, scans
+    cfg_on = oxford_config(**SWITCHES_ON)
+    mesh.all_reduce_sum(torch.ones(1, device=dev), group)
+    outs, launches, solves, ms, fps, peak = batch_run(cfg_on, frames, N_SHORT, dev,
+                                                      group=group)
+    want = expected_launches(cfg_on, N_BATCH, solves)
+    if launches != want:
+        raise AssertionError(f"rank {rank}: launches {launches} over {N_BATCH} batched "
+                             f"frames and {solves} window solves, expected one "
+                             f"sequence's {want}")
+    flat = flat_outputs(outs)
+    digest = hashlib.sha256(b"".join(np.ascontiguousarray(flat[k]).tobytes()
+                                     for k in sorted(flat))).hexdigest()
+    res.update(batch_ms=ms, batch_fps=fps, peak=peak, launches=launches, solves=solves,
+               members=int(mesh.shard_range(len(stamps), group)[1]
+                           - mesh.shard_range(len(stamps), group)[0]),
+               outs_sha256=digest)
+    if rank == 0:
+        arrays.update({f"outs.{k}": v for k, v in flat.items()})
+
+    # (b) the submap-sharded Schur route, bench.py's graph, max_iterations=10
+    poses, eb, ee, trans, sqrt_i, node_submap, node_is_root, _ = bench_graph(SCHUR_NODES)
+
+    def put(x):
+        return torch.from_numpy(x).to(dev)
+
+    g = PG.PoseGraph(put(poses), put(eb), put(ee), put(trans), put(sqrt_i),
+                     torch.ones(len(eb), dtype=torch.bool, device=dev))
+    cfg10 = GlobalFuserConfig(max_iterations=10)
+
+    def schur10(grp=group):
+        with counting_schur_iterations() as its:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, info = schur.optimize_auto(g, cfg10, node_submap=node_submap,
+                                          node_is_root=node_is_root, group=grp)
+            p = p.cpu().numpy()
+            wall = time.perf_counter() - t0
+        if info["solver"] != "schur" or not info.get("two_stage"):
+            raise AssertionError(f"rank {rank}: {SCHUR_NODES} nodes took {info}")
+        return p, its[0], wall
+
+    schur10()
+    arrays["schur10"], res["schur_iterations"], res["schur_s"] = schur10()
+    # the same solve unsharded in this process, for what the collectives cost
+    schur10(None)
+    res["schur_alone_s"] = schur10(None)[2]
+
+    # (c) the edge-sharded dense route on phase 7's pose graph
+    graph = PG.PoseGraph(*(put(data[f"graph.{k}"]) for k in PG.PoseGraph._fields))
+    cfg = oxford_config().global_fuser
+    schur.optimize_distributed(graph, cfg, group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, info = schur.optimize_distributed(graph, cfg, group)
+    arrays["dense"] = p.cpu().numpy()
+    res.update(dense_s=time.perf_counter() - t0, dense_iterations=info["iterations"])
+    alone = mesh.data_group(1)
+    if rank == 0:
+        p, info = schur.optimize_distributed(graph, cfg, alone)
+        arrays["dense_one_rank"] = p.cpu().numpy()
+        res["dense_one_rank_iterations"] = info["iterations"]
+
+    label = f"{backend}{world}_rank{rank}"
+    np.savez(os.path.join(tmp, label + ".npz"), **arrays)
+    with open(os.path.join(tmp, label + ".json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def md_world(tmp, backend, world):
+    """Spawn a world of ``world`` ranks (:func:`md_rank`), each on card
+    ``rank % device_count``; wait for all, failing as soon as one fails.
+    Returns each rank's (json, arrays) and the world's wall seconds."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    spawned = time.time()
+    procs, logs = [], []
+    for rank in range(world):
+        env = dict(os.environ, RANDT_COORDINATOR=f"127.0.0.1:{port}",
+                   RANDT_NUM_PROCESSES=str(world), RANDT_PROCESS_ID=str(rank))
+        logs.append(os.path.join(tmp, f"{backend}{world}_rank{rank}.log"))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--md-rank", tmp, backend,
+                 str(world), repr(spawned)], env=env, stdout=log, stderr=subprocess.STDOUT))
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if failed or time.time() - spawned > MD_TIMEOUT:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.time() - spawned
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad:
+            with open(logs[r]) as f:
+                print(f"phase 12: {backend} rank {r} of {world} exited {procs[r].returncode}:\n"
+                      + f.read()[-4000:], flush=True)
+        raise AssertionError(f"phase 12: ranks {bad} of the {backend} world of {world} failed")
+    out = []
+    for r in range(world):
+        label = os.path.join(tmp, f"{backend}{world}_rank{r}")
+        with open(label + ".json") as f:
+            out.append((json.load(f), dict(np.load(label + ".npz"))))
+    return out, wall
+
+
+def md_phase(refs, dev, smi):
+    """Phase 12: multi-device.  The sharded batch of phase 11's 8 drives,
+    the sharded Schur route at phase 9's cap of 10 iterations and the
+    edge-sharded dense route on phase 7's pose graph, in a world of one rank
+    per card under NCCL and, with one card, in a 2-rank gloo world whose
+    ranks share it (collectives staged through the host).  ``refs``: the
+    drives (scans, stamps, gt), az, ranges, phase 11's switches-on runs by
+    B, phase 9's ``max_iterations=10`` figures and phase 7's pose graph (numpy
+    fields).  Returns the kernels' launches per world and rank."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from randt_slam_torch.config import oxford_config
+    from randt_slam_torch.graph import pose_graph as PG
+    from randt_slam_torch.graph import schur
+    from randt_slam_torch.io import formats
+    from randt_slam_torch.pipeline import slam
+
+    n_dev = torch.cuda.device_count()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        drives = refs["drives"]
+        np.savez(os.path.join(tmp, "inputs.npz"), scans=np.stack([d[0] for d in drives]),
+                 stamps=np.stack([d[1] for d in drives]), az=refs["az"],
+                 ranges=refs["ranges"],
+                 **{f"graph.{k}": v for k, v in refs["graph"].items()})
+        graph = PG.PoseGraph(*(torch.from_numpy(refs["graph"][k]).to(dev)
+                               for k in PG.PoseGraph._fields))
+        gf = oxford_config().global_fuser
+        dense_ref = PG.optimize(graph, gf)[0].cpu().numpy()
+        N = graph.poses.shape[0]
+        _, eb, ee, _, _, node_submap, node_is_root, gt_bench = bench_graph(SCHUR_NODES)
+        worlds = [("nccl", n_dev)] + ([("gloo", 2)] if n_dev == 1 else [])
+        b_max = max(BATCH_SIZES)
+        ref8, ref4 = refs["batch"][b_max], refs["batch"][4]
+        s10 = refs["schur10"]
+        tables = ("node_id", "node_frame", "node_submap", "node_is_root",
+                  "edge_begin", "edge_end")
+        launches = {}
+        for backend, W in worlds:
+            ranks, wall = md_world(tmp, backend, W)
+            label = f"{backend}{W}"
+            js = [j for j, _ in ranks]
+            print(f"phase 12, {label}: {W} rank(s) on {n_dev} card(s) "
+                  f"({'; '.join(sorted(set(smi.splitlines())))}), the world "
+                  f"{wall:.1f} s from spawn to exit; per rank: spawn to start "
+                  f"{[round(j['spawn_s'], 2) for j in js]} s, torch and the port imported "
+                  f"{[round(j['import_s'], 2) for j in js]} s, init_distributed "
+                  f"{[round(j['init_s'], 2) for j in js]} s, first collective "
+                  f"{[round(j['first_s'], 3) for j in js]} s", flush=True)
+            # (a) the sharded batch
+            if len({j["outs_sha256"] for j in js}) != 1:
+                raise AssertionError(f"phase 12 {label}: the ranks' gathered outputs differ")
+            outs = unflat_outputs({k[5:]: v for k, v in ranks[0][1].items()
+                                   if k.startswith("outs.")})
+            gaps, first_bits = [], []
+            for b in range(b_max):
+                mine, want = member_outputs(outs, b, N_BATCH), member_outputs(ref8["outs"], b,
+                                                                                N_BATCH)
+                t_tab, w_tab = slam._unstack_outputs(mine), slam._unstack_outputs(want)
+                for k in tables:
+                    if not np.array_equal(t_tab[k], w_tab[k]):
+                        raise AssertionError(f"phase 12 {label}: member {b}'s {k} table "
+                                             f"differs from phase 11's B = {b_max} run")
+                d = np.abs(mine.odom_pose - want.odom_pose)
+                gt = drives[b][2]
+                ate_gap = abs(formats.ate(mine.odom_pose, gt) - formats.ate(want.odom_pose, gt))
+                if not (ate_gap < BATCH_BANDS[0] and d[:, 2].max() <= BATCH_BANDS[1]
+                        and d[:, :2].max() <= BATCH_BANDS[2]):
+                    raise AssertionError(f"phase 12 {label}: member {b} off phase 11's run: "
+                                         f"ATE gap {ate_gap:.2e} m, {d[:, 2].max():.2e} rad, "
+                                         f"{d[:, :2].max():.2e} m")
+                differ = np.flatnonzero((mine.odom_pose != want.odom_pose).any(axis=1))
+                first_bits.append(int(differ[0]) if len(differ) else None)
+                gaps.append(float(d[:, :2].max()))
+            rank0 = "not checked (rank 0 holds other members than phase 11's B = 4 run)"
+            if js[0]["members"] == 4:
+                same = all(np.array_equal(a, b) for a, b in zip(
+                    flat_outputs(member_outputs(outs, slice(0, 4), N_BATCH)).values(),
+                    flat_outputs(ref4["outs"]).values()))
+                if not same:
+                    raise AssertionError(f"phase 12 {label}: rank 0's drives 0-3 differ from "
+                                         f"phase 11's B = 4 run")
+                rank0 = "bitwise phase 11's B = 4 run"
+            fleet = min(j["batch_fps"] for j in js)
+            print(f"  (a) sharded batch, {b_max} drives x {N_BATCH} frames, "
+                  f"{js[0]['members']} per rank: {fleet:.3f} fleet frames/s (frames "
+                  f"{N_SHORT}-{N_BATCH - 1}, B x frames over the slowest rank's wall) beside "
+                  f"phase 11's one process at B = {b_max}: {ref8['fps']:.3f} in this call "
+                  f"({fleet / ref8['fps']:.2f}x); ms per batched frame per rank "
+                  f"{[round(j['batch_ms'], 1) for j in js]}; peak device memory per rank "
+                  f"{[round(j['peak'] / 2**30, 3) for j in js]} GiB; launches per rank "
+                  f"{[{k: v for k, v in j['launches'].items() if v} for j in js]} = one "
+                  f"sequence's each ({js[0]['solves']} window solves); members' tables "
+                  f"identical to phase 11's B = {b_max} run, positions within "
+                  f"{max(gaps):.2e} m, first frame with other bits per member {first_bits}; "
+                  f"rank 0: {rank0}", flush=True)
+            # (b) the sharded Schur route
+            lay = schur.build_layout(node_submap, node_is_root, eb, ee, pad_submaps_to=W)
+            S, I = lay.int_node.shape
+            L = lay.sep_ids.shape[1]
+            gathered = S * (9 * L * L + 3 * L) * 4
+            for j, (_, a) in zip(js, ranks):
+                if j["schur_iterations"] != s10["iterations"]:
+                    raise AssertionError(f"phase 12 {label}: the sharded Schur solve took "
+                                         f"{j['schur_iterations']} iterations, phase 9's "
+                                         f"{s10['iterations']}")
+                if not np.array_equal(a["schur10"], ranks[0][1]["schur10"]):
+                    raise AssertionError(f"phase 12 {label}: the ranks' Schur poses differ")
+            # the gap is reported, not bounded: at the cap the solve is far from
+            # its optimum, where other bits in a rank's slice (CUDA's scatter and
+            # batched products depend on the batch size) move the poses by far
+            # more than they do near it (PERF.md section 6)
+            p10 = ranks[0][1]["schur10"]
+            if not np.all(np.isfinite(p10)):
+                raise AssertionError(f"phase 12 {label}: the sharded Schur poses are not finite")
+            gap = ("bitwise" if np.array_equal(p10, s10["poses"])
+                   else "{:.3e} m / {:.3e} rad".format(*se2_gap(p10, s10["poses"])))
+            its = js[0]["schur_iterations"]
+            print(f"  (b) sharded Schur route, bench.py's {SCHUR_NODES} nodes at "
+                  f"max_iterations=10 (both DCS stages): {its} iterations as phase 9's; "
+                  f"poses against phase 9's single-process solve: {gap} (from the ground "
+                  f"truth {se2_gap(p10, gt_bench)[0]:.4g} m, phase 9's "
+                  f"{se2_gap(s10['poses'], gt_bench)[0]:.4g} m); "
+                  f"{max(j['schur_s'] for j in js) * 1e3 / its:.2f} ms per iteration (phase 9: "
+                  f"{s10['ms'] / s10['iterations']:.2f}; unsharded in each rank's process "
+                  f"{[round(j['schur_alone_s'] * 1e3 / its, 2) for j in js]}); {S} submaps ({S - lay.n_submaps} "
+                  f"padded), L = {L}, I = {I}: all-gathered per iteration S(9L^2 + 3L) x 4 = "
+                  f"{gathered} B of blocks and S x 3I x 4 = {S * 3 * I * 4} B of interior "
+                  f"steps", flush=True)
+            # (c) the edge-sharded dense route
+            pd = ranks[0][1]["dense"]
+            one = ranks[0][1]["dense_one_rank"]
+            for j, (_, a) in zip(js, ranks):
+                if not np.array_equal(a["dense"], pd):
+                    raise AssertionError(f"phase 12 {label}: the ranks' dense poses differ")
+            g_ref, g_one = se2_gap(pd, dense_ref), se2_gap(pd, one)
+            if not (g_ref[0] <= MD_DENSE_BAND and g_one[0] <= MD_ONE_RANK_BAND):
+                raise AssertionError(f"phase 12 {label}: optimize_distributed {g_ref[0]:.2e} m "
+                                     f"from pose_graph.optimize (band {MD_DENSE_BAND}), "
+                                     f"{g_one[0]:.2e} m from one rank (band "
+                                     f"{MD_ONE_RANK_BAND})")
+            its = js[0]["dense_iterations"]
+            print(f"  (c) edge-sharded dense route, phase 7's pose graph ({N} nodes, "
+                  f"{len(refs['graph']['id_begin'])} edges): {its} iterations (one rank "
+                  f"{js[0]['dense_one_rank_iterations']}); {g_ref[0]:.2e} m / {g_ref[1]:.2e} "
+                  f"rad from pose_graph.optimize on the card (band {MD_DENSE_BAND} m), "
+                  f"{g_one[0]:.2e} m / {g_one[1]:.2e} rad from one rank (band "
+                  f"{MD_ONE_RANK_BAND} m); {max(j['dense_s'] for j in js) * 1e3 / its:.2f} ms "
+                  f"per iteration; all-reduced per iteration (9N^2 + 3N) x 4 = "
+                  f"{(9 * N * N + 3 * N) * 4} B, and 2 x {4 * W} B of gathered costs",
+                  flush=True)
+            launches[label] = [j["launches"] for j in js]
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def card_and_build():
+    """Phases 1 and 2: the card (None without torch, CUDA or the port) and
+    every kernel built, in parallel.  Returns (torch, device, name, smi)."""
     try:
         import torch
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
-        return 1
+        return None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
+        return None
     try:
         import randt_slam_torch  # noqa: F401
     except ImportError:
         print("chip_smoke: the randt_slam_torch package is not beside this script",
               file=sys.stderr)
-        return 1
-    from randt_slam_torch.config import oxford_config
+        return None
     from randt_slam_torch.ops import build
-    from randt_slam_torch.pipeline import slam
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
-    print(f"device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    print(f"device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}), "
+          f"{torch.cuda.device_count()} card(s)")
     print(smi, flush=True)
 
     # ---- 2. build ----------------------------------------------------------
@@ -1986,6 +2383,79 @@ def main() -> int:
     for n, (sec, log) in built.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"  {n}: {sec:.2f} s; {'; '.join(regs)}", flush=True)
+    return torch, dev, name, smi
+
+
+def print_ok(torch, name):
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+
+
+def md_only(graph_path) -> int:
+    """``chip_smoke.py --multi-device GRAPH``: phases 1, 2 and 12 alone, for
+    a machine of several cards.  What phase 12 is held to is made here as
+    the full run makes it: phase 11's drives and its one-process runs at B
+    = 4 and 8, phase 9's ``max_iterations=10`` solve; phase 7's pose graph
+    is read from GRAPH (written by a full run's ``--save-slam-graph``)."""
+    t_start = time.perf_counter()
+    card = card_and_build()
+    if card is None:
+        return 1
+    torch, dev, name, smi = card
+    from randt_slam_torch.config import GlobalFuserConfig, oxford_config
+    from randt_slam_torch.graph import pose_graph as PG
+    from randt_slam_torch.graph import schur
+    from randt_slam_torch.pipeline import frontend as F
+    from randt_slam_torch.pipeline import slam
+
+    cfg_on = oxford_config(**SWITCHES_ON)
+    scans, az, ranges, stamps, gt = render_frames(N_RENDER)
+    drives = batch_drives((scans, az, ranges, stamps, gt))
+    frames = [slam.frames_from_arrays(sc, az, ranges, st, device=dev) for sc, st, _ in drives]
+    runs = {}
+    for B in (4, max(BATCH_SIZES)):
+        fb = F.Frame(*(torch.stack([fr[k] for fr in frames[:B]])
+                       for k in range(len(F.Frame._fields))))
+        outs, _, _, ms, fps, _ = batch_run(cfg_on, fb, N_SHORT, dev)
+        runs[B] = dict(outs=outs, fps=fps)
+        print(f"one process, B = {B}: {ms:.1f} ms per batched frame, {fps:.3f} fleet "
+              f"frames/s", flush=True)
+    del frames
+    poses, eb, ee, trans, sqrt_i, node_submap, node_is_root, _ = bench_graph(SCHUR_NODES)
+
+    def put(x):
+        return torch.from_numpy(x).to(dev)
+
+    g = PG.PoseGraph(put(poses), put(eb), put(ee), put(trans), put(sqrt_i),
+                     torch.ones(len(eb), dtype=torch.bool, device=dev))
+    for _ in range(2):  # the second call is timed, as phase 9's
+        with counting_schur_iterations() as its:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p10 = schur.optimize_auto(g, GlobalFuserConfig(max_iterations=10),
+                                      node_submap=node_submap,
+                                      node_is_root=node_is_root)[0].cpu().numpy()
+            ms10 = (time.perf_counter() - t0) * 1e3
+    launches = md_phase(dict(drives=drives, az=az, ranges=ranges, batch=runs,
+                             schur10=dict(poses=p10, iterations=its[0], ms=ms10),
+                             graph=dict(np.load(graph_path))), dev, smi)
+    print(f"chip_smoke --multi-device: passed in {time.perf_counter() - t_start:.1f} s wall",
+          flush=True)
+    print(json.dumps({"multi_device_launches": launches}))
+    print_ok(torch, name)
+    return 0
+
+
+def main(save_slam_graph=None) -> int:
+    """The full run (no arguments); ``save_slam_graph``: a path to write
+    phase 7's pose graph to, for :func:`md_only`."""
+    t_start = time.perf_counter()
+    card = card_and_build()
+    if card is None:
+        return 1
+    torch, dev, name, smi = card
+    from randt_slam_torch.config import oxford_config
+    from randt_slam_torch.pipeline import slam
 
     # ---- 3. kernels against their plain versions ---------------------------
     cfg = oxford_config()
@@ -2086,9 +2556,14 @@ def main() -> int:
     ogm_k1 = ogm_phase(cfg_on, slam_res, slam_frames, dev)
     ogm_s = time.perf_counter() - t_phase
 
+    slam_graph = {k: v.numpy() for k, v in slam.build_pose_graph(
+        slam_res.odometry, slam_res.loops, "cpu")._asdict().items()}
+    if save_slam_graph:
+        np.savez(save_slam_graph, **slam_graph)
+
     # ---- 9. the Schur-complement pose graph at a full sequence's size -----
     t_phase = time.perf_counter()
-    schur_phase(dev, smi)
+    sch = schur_phase(dev, smi)
     schur_s = time.perf_counter() - t_phase
 
     # ---- 10. online SLAM over the same drive ------------------------------------
@@ -2099,8 +2574,17 @@ def main() -> int:
 
     # ---- 11. batched odometry: B drives per card ---------------------------
     t_phase = time.perf_counter()
-    batched = batch_phase(cfg_on, cfg, (scans, az, ranges, stamps, gt), dev, smi)
+    batched, drives, runs = batch_phase(cfg_on, cfg, (scans, az, ranges, stamps, gt), dev,
+                                        smi)
     batch_s = time.perf_counter() - t_phase
+
+    # ---- 12. multi-device: worlds of ranks, one process each -----------------
+    t_phase = time.perf_counter()
+    md = md_phase(dict(drives=drives, az=az, ranges=ranges, batch=runs,
+                       schur10=dict(poses=sch["max10_poses"], iterations=sch["max10_iterations"],
+                                    ms=sch["max10_ms"]), graph=slam_graph), dev, smi)
+    del runs
+    md_s = time.perf_counter() - t_phase
 
     def record(n, source, replaces, launches, measured):
         extra = {}
@@ -2110,7 +2594,10 @@ def main() -> int:
                          batch_bound_by=by)
         return dict(name=n, route="cuda", source="randt_slam_torch/csrc/" + source,
                     replaces="randt_slam_tpu/ops/" + replaces, launches=launches,
-                    online_launches=online[n], **measured, **extra)
+                    online_launches=online[n],
+                    multi_device_launches={w: [rank[n] for rank in per_rank]
+                                           for w, per_rank in md.items()},
+                    **measured, **extra)
 
     rows = [
         record("row_windows", "window_slice.cu", "window_slice.py:49",
@@ -2129,13 +2616,18 @@ def main() -> int:
     print(f"chip_smoke: passed in {time.perf_counter() - t_start:.1f} s wall (set-up "
           f"{setup_s:.1f} s, kernels and odometry {odometry_s:.1f} s, K5 {k5_s:.1f} s, "
           f"full SLAM {slam_s:.1f} s, OGM {ogm_s:.1f} s, Schur {schur_s:.1f} s, "
-          f"online {online_s:.1f} s, batched {batch_s:.1f} s)",
+          f"online {online_s:.1f} s, batched {batch_s:.1f} s, multi-device {md_s:.1f} s)",
           flush=True)
     print(json.dumps({"kernels": rows}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": torch.cuda.device_count()}}))
+    print_ok(torch, name)
     return 0
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--md-rank"]:
+        sys.exit(md_rank(sys.argv[2], sys.argv[3], int(sys.argv[4]), float(sys.argv[5])))
+    if sys.argv[1:2] == ["--multi-device"]:
+        sys.exit(md_only(sys.argv[2]))
+    if sys.argv[1:2] == ["--save-slam-graph"]:
+        sys.exit(main(save_slam_graph=sys.argv[2]))
     sys.exit(main())

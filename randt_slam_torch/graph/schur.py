@@ -1,6 +1,6 @@
 """Pose-graph solve by size: dense, or the submap Schur complement.
 
-Port of ``randt_slam_tpu/graph/schur.py`` on one device.  The SLAM graph's
+Port of ``randt_slam_tpu/graph/schur.py``.  The SLAM graph's
 nodes group into submaps whose ROOT nodes are the only ones loop edges
 attach to (``local_fuser.cpp:341-347``), and odometry chains cross submap
 boundaries only at roots.  Ordering the variables [interiors | roots] makes
@@ -28,11 +28,17 @@ with submap structure take :func:`optimize_schur`.  The shipped DCS loop
 defense runs as a two-stage schedule on either route: plain least squares to
 convergence, then DCS on the loop edges only, from that optimum.
 
-The JAX package's compile caches, its shape bucketing and padding (node and
-edge counts to 256, roots to 8) and its mesh path are TPU compile devices and
-are not ported.  The index scatters go through ``runtime.index_add``, so the
-solve repeats bitwise on CUDA; the loop reads its ``done`` flag on the host
-once per iteration, as :func:`pose_graph.optimize` does.
+With a group of ranks (``parallel/mesh.py``, one process per card) two
+sharded solves run, as the JAX package's mesh paths do: the submap Schur
+route shards the submaps (steps 1, 2 and 5 run on each rank's slice; the
+compact blocks are all-gathered in submap order, and every rank scatters
+and solves the same reduced system), and :func:`optimize_distributed`
+shards the edges of the dense normal equations, all-reduced every
+iteration.  The JAX package's compile caches and its shape bucketing
+(node and edge counts to 256, roots to 8) serve the TPU's compiler and are
+not ported.  The index scatters go through ``runtime.index_add``, so the
+solve repeats bitwise on CUDA; the loops read their ``done`` flag on the
+host once per iteration, as :func:`pose_graph.optimize` does.
 """
 
 from __future__ import annotations
@@ -43,17 +49,79 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import runtime
 from ..config import GlobalFuserConfig
 from ..geometry import normalize_angle
+from ..parallel import mesh
 from . import pose_graph as PG
+
+
+# ---------------------------------------------------------------------------
+# the edge-sharded dense solve
+# ---------------------------------------------------------------------------
+
+
+def _pad_edges(g: PG.PoseGraph, multiple: int) -> PG.PoseGraph:
+    """``g`` with invalid edges (node 0 to node 0, zero weight) appended up
+    to a multiple of ``multiple`` edges."""
+    pad = (-g.id_begin.shape[0]) % multiple
+    if pad == 0:
+        return g
+    return PG.PoseGraph(g.poses, *(torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+                                   for x in g[1:]))
+
+
+def _group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+@torch.profiler.record_function("randt.pgo_distributed")
+def optimize_distributed(g: PG.PoseGraph, cfg: GlobalFuserConfig, group):
+    """Gauss-Newton with LM damping (:func:`pose_graph.lm_loop`, node 0
+    fixed), the assembly sharded over the group's ranks by edges:
+    the edges are padded to a multiple of the group's size, each rank
+    assembles H, grad and cost over its contiguous share, and one
+    all-reduce per iteration sums H (3N, 3N) and grad (3N,), packed.  The
+    ranks' costs are all-gathered and summed in rank order, at the current
+    poses and at the trial: the accept test compares the two, so a cost
+    must have the same bits however it was reduced (an all-reduce may sum
+    in another order from one call to the next).  Every rank runs the same
+    step on the same sums.  ``group=None`` is one rank, no collective.
+    Returns (poses, {"cost", "iterations"})."""
+    g = _pad_edges(g, _group_size(group))
+    lo, hi = mesh.shard_range(g.id_begin.shape[0], group)
+    shard = PG.PoseGraph(g.poses, *(x[lo:hi] for x in g[1:]))
+    N = g.poses.shape[0]
+    free_f = (~torch.repeat_interleave(PG._fixed_first(N, g.poses.device), 3)).to(
+        g.poses.dtype)
+    robust, scale = PG.robust_spec(cfg), cfg.loss_function_scale
+
+    def summed(cost):
+        return cost if group is None else mesh.all_gather_cat(cost[None], group).sum()
+
+    def assemble(poses):
+        H, grad, cost = PG._assemble(poses, shard, robust, scale)
+        if group is None:
+            return H, grad, cost
+        flat = mesh.all_reduce_sum(torch.cat([H.reshape(-1), grad]), group)
+        return flat[:H.numel()].reshape(H.shape), flat[H.numel():], summed(cost)
+
+    return PG.lm_loop(g.poses, assemble,
+                      lambda poses: summed(total_cost(poses, shard, robust, scale)),
+                      free_f, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the submap Schur complement
+# ---------------------------------------------------------------------------
 
 
 class SchurLayout(NamedTuple):
     """Host-built static partition of a SLAM pose graph for the Schur solve.
 
-    S   = number of submaps
+    S   = number of submaps (padded to a multiple of the group's size)
     I   = max interiors per submap
     Es  = max edges owned per submap (interior-interior + interior-root)
     R   = number of root (separator) nodes == number of real submaps
@@ -80,12 +148,15 @@ class SchurLayout(NamedTuple):
     n_submaps: int
 
 
-def build_layout(node_submap, node_is_root, id_begin, id_end) -> SchurLayout:
-    """Host-side static partition (numpy; runs once per solve).  The JAX
-    package's arguments that pad the submaps to a mesh and round I, Es and
-    L up to compile buckets are left out: with their defaults the arrays
-    are the same.  An edge that couples the interiors of two submaps fails
-    the ``assert``: the Schur layout needs the interior block to be
+def build_layout(node_submap, node_is_root, id_begin, id_end,
+                 pad_submaps_to: int = 1) -> SchurLayout:
+    """Host-side static partition (numpy; runs once per solve).  The
+    submaps are padded to a multiple of ``pad_submaps_to`` (the group's
+    size) with empty ones: no interior, no edge, every separator slot
+    unused.  The JAX package's arguments that round I, Es and L up to
+    compile buckets are left out: with their defaults the arrays are the
+    same.  An edge that couples the interiors of two submaps fails the
+    ``assert``: the Schur layout needs the interior block to be
     submap-diagonal."""
     node_submap = np.asarray(node_submap)
     node_is_root = np.asarray(node_is_root, bool)
@@ -99,6 +170,7 @@ def build_layout(node_submap, node_is_root, id_begin, id_end) -> SchurLayout:
         root_node[s] = nid
         sep_of_node[nid] = s
     S = max(R, 1)
+    S_pad = -(-S // pad_submaps_to) * pad_submaps_to
 
     # interior slots per submap
     int_lists = [[] for _ in range(S)]
@@ -110,7 +182,7 @@ def build_layout(node_submap, node_is_root, id_begin, id_end) -> SchurLayout:
         int_slot[nid] = len(int_lists[s])
         int_lists[s].append(nid)
     I = max(1, max((len(l) for l in int_lists), default=1))
-    int_node = np.full((S, I), -1, np.int32)
+    int_node = np.full((S_pad, I), -1, np.int32)
     for s, l in enumerate(int_lists):
         int_node[s, :len(l)] = l
 
@@ -147,11 +219,11 @@ def build_layout(node_submap, node_is_root, id_begin, id_end) -> SchurLayout:
             owned[sa].append((e, 0, int_slot[a], int_slot[b]))
     Es = max(1, max((len(l) for l in owned), default=1))
     L = max(1, max((len(d) for d in local_seps), default=1))
-    edge_idx = np.full((S, Es), -1, np.int32)
-    edge_kind = np.zeros((S, Es), np.int32)
-    edge_a = np.zeros((S, Es), np.int32)
-    edge_b = np.zeros((S, Es), np.int32)
-    sep_ids = np.full((S, L), -1, np.int32)
+    edge_idx = np.full((S_pad, Es), -1, np.int32)
+    edge_kind = np.zeros((S_pad, Es), np.int32)
+    edge_a = np.zeros((S_pad, Es), np.int32)
+    edge_b = np.zeros((S_pad, Es), np.int32)
+    sep_ids = np.full((S_pad, L), -1, np.int32)
     for s, l in enumerate(owned):
         for j, (e, k, a, b) in enumerate(l):
             edge_idx[s, j] = e
@@ -200,11 +272,12 @@ def _vector_index(s, slot, n_slots):
 
 
 class _Layout(NamedTuple):
-    """A :class:`SchurLayout` on the device: each submap's owned edges and
-    the flat indices they scatter to in the per-submap blocks (slot I, and
-    L, is the dump of the endpoints an edge kind does not scatter to, as in
-    the JAX package's ``_submap_blocks``), the separator DOF map and the
-    gauge.  Built once per solve."""
+    """A :class:`SchurLayout` on the device: the owned edges of this rank's
+    submaps (all of them without a group) and the flat indices they scatter
+    to in the per-submap blocks (slot I, and L, is the dump of the
+    endpoints an edge kind does not scatter to, as in the JAX package's
+    ``_submap_blocks``), the separator DOF map and the gauge.  Built once
+    per solve."""
 
     edge_idx: torch.Tensor    # (S * Es,) global edge index, 0 where padded
     edge_ok: torch.Tensor     # (S * Es,) bool
@@ -217,9 +290,12 @@ class _Layout(NamedTuple):
     gi_index: torch.Tensor    # into (S, I+1, 3): ga, gb
     gs_index: torch.Tensor    # into (S, L+1, 3): ga (SI), gb (IS)
     int_valid: torch.Tensor   # (S, I) bool
-    int_node_safe: torch.Tensor  # (S, I) int64, 0 where padded
-    root_node: torch.Tensor   # (R,) int64
     dof_rows: torch.Tensor    # (S, 3L) reduced-system index; 3R = dump
+    # every submap's, for the reduced system and the update
+    int_valid_all: torch.Tensor  # (S_all, I) bool
+    int_node_safe: torch.Tensor  # (S_all, I) int64, 0 where padded
+    dof_all: torch.Tensor     # (S_all, 3L)
+    root_node: torch.Tensor   # (R,) int64
     ss_idx: torch.Tensor      # (Ess,) separator-separator edges
     ss_c_index: torch.Tensor  # into (3R, 3R): Haa, Hbb, Hab, Hba
     ss_g_index: torch.Tensor  # into (3R,): ga, gb
@@ -231,13 +307,24 @@ class _Layout(NamedTuple):
     R: int
 
 
-def _prepare(g: PG.PoseGraph, node_submap, node_is_root) -> _Layout:
-    lay = build_layout(node_submap, node_is_root, g.id_begin.cpu().numpy(),
-                       g.id_end.cpu().numpy())
+def _prepare(g: PG.PoseGraph, node_submap, node_is_root, group=None) -> _Layout:
+    """The layout of the whole graph, its submaps padded to the group's
+    size, with this rank's slice of them."""
+    full = build_layout(node_submap, node_is_root, g.id_begin.cpu().numpy(),
+                        g.id_end.cpu().numpy(), pad_submaps_to=_group_size(group))
     dev, dtype = g.poses.device, g.poses.dtype
-    R = len(lay.root_node)
-    (S, I), L = lay.int_node.shape, lay.sep_ids.shape[1]
-    Es = lay.edge_idx.shape[1]
+    R = len(full.root_node)
+    (S_all, I), L = full.int_node.shape, full.sep_ids.shape[1]
+    Es = full.edge_idx.shape[1]
+    # padded separator slots scatter into the dump row/column 3R
+    dof = np.where(full.sep_ids[:, :, None] >= 0,
+                   full.sep_ids[:, :, None] * 3 + np.arange(3)[None, None, :],
+                   3 * R).reshape(S_all, 3 * L)
+    lo, hi = mesh.shard_range(S_all, group)
+    S = hi - lo
+    lay = full._replace(**{k: getattr(full, k)[lo:hi] for k in (
+        "int_node", "int_valid", "edge_idx", "edge_kind", "edge_a", "edge_b",
+        "sep_ids")})
 
     def put(x):
         return torch.from_numpy(np.ascontiguousarray(x, np.int64).reshape(-1)).to(dev)
@@ -254,10 +341,6 @@ def _prepare(g: PG.PoseGraph, node_submap, node_is_root) -> _Layout:
     s = np.arange(S)[:, None]
     k9 = np.arange(9)
     sa, sb = lay.ss_a.astype(np.int64), lay.ss_b.astype(np.int64)
-    # padded separator slots scatter into the dump row/column 3R
-    dof = np.where(lay.sep_ids[:, :, None] >= 0,
-                   lay.sep_ids[:, :, None] * 3 + np.arange(3)[None, None, :],
-                   3 * R).reshape(S, 3 * L)
     # gauge: the first root is fixed (the dense path fixes node 0)
     sep_free = np.ones((R, 3), np.float32)
     sep_free[:1] = 0.0
@@ -274,9 +357,10 @@ def _prepare(g: PG.PoseGraph, node_submap, node_is_root) -> _Layout:
                      (s * (L + 1) + ib_sep)[..., None] * 9 + k9]),
         gi_index=put([_vector_index(s, ia_int, I + 1), _vector_index(s, ib_int, I + 1)]),
         gs_index=put([_vector_index(s, ia_sep, L + 1), _vector_index(s, ib_sep, L + 1)]),
-        int_valid=mask(lay.int_valid),
-        int_node_safe=put(np.where(lay.int_node >= 0, lay.int_node, 0)).reshape(S, I),
-        root_node=put(lay.root_node), dof_rows=put(dof).reshape(S, 3 * L),
+        int_valid=mask(lay.int_valid), dof_rows=put(dof[lo:hi]).reshape(S, 3 * L),
+        int_valid_all=mask(full.int_valid),
+        int_node_safe=put(np.where(full.int_node >= 0, full.int_node, 0)).reshape(S_all, I),
+        dof_all=put(dof).reshape(S_all, 3 * L), root_node=put(lay.root_node),
         ss_idx=put(lay.ss_idx),
         ss_c_index=put([_block_index(0, sa, sa, R, R), _block_index(0, sb, sb, R, R),
                         _block_index(0, sa, sb, R, R), _block_index(0, sb, sa, R, R)]),
@@ -357,10 +441,11 @@ def submap_pass(poses, g, lay: _Layout, lam, robust, scale):
 
 
 def scatter_reduced(Cblk, g_loc, lay: _Layout):
-    """The compact blocks into the dense (3R, 3R) reduced system; padded
-    separator slots land in the dump row/column 3R, sliced off."""
+    """Every submap's compact blocks, in submap order, into the dense (3R,
+    3R) reduced system; padded separator slots land in the dump row/column
+    3R, sliced off."""
     n = 3 * lay.R + 1
-    d = lay.dof_rows
+    d = lay.dof_all
     C = runtime.index_add(Cblk.new_zeros(n * n),
                           (d[:, :, None] * n + d[:, None, :]).reshape(-1),
                           Cblk.reshape(-1)).reshape(n, n)
@@ -368,8 +453,20 @@ def scatter_reduced(Cblk, g_loc, lay: _Layout):
     return C[:-1, :-1], gr[:-1]
 
 
-def reduced_system(poses, g, lay: _Layout, lam, robust, scale):
+def _gather_blocks(Cblk, g_loc, group):
+    """Every rank's compact blocks and gradients in submap order, one
+    all-gather of the pair: S (9 L^2 + 3 L) floats."""
+    S, n = Cblk.shape[0], Cblk.shape[1]
+    both = mesh.all_gather_cat(torch.cat([Cblk.reshape(S, n * n), g_loc], dim=1), group)
+    return both[:, :n * n].reshape(-1, n, n), both[:, n * n:]
+
+
+def reduced_system(poses, g, lay: _Layout, lam, robust, scale, group=None):
+    """The reduced system over the roots, the same on every rank, and this
+    rank's factorization for the back-substitution."""
     Cblk, g_loc, fact = submap_pass(poses, g, lay, lam, robust, scale)
+    if group is not None:
+        Cblk, g_loc = _gather_blocks(Cblk, g_loc, group)
     C_red, g_red = scatter_reduced(Cblk, g_loc, lay)
     if lay.ss_idx.numel():
         Css, gss = _ss_blocks(poses, g, lay, robust, scale)
@@ -378,7 +475,8 @@ def reduced_system(poses, g, lay: _Layout, lam, robust, scale):
 
 
 def back_substitute(fact, lay: _Layout, dsep):
-    """Interior increments (S, 3I) from the root increment."""
+    """Interior increments (S, 3I) of this rank's submaps from the root
+    increment."""
     chol, Bf, gf = fact
     dsep_loc = torch.cat([dsep, dsep.new_zeros(1)])[lay.dof_rows]   # (S, 3L)
     rhs = gf + torch.einsum("sab,sb->sa", Bf, dsep_loc)
@@ -401,17 +499,21 @@ def solve_sep(C_red, g_red, sep_free, lam):
 
 
 def apply_delta(poses, dsep, dint, lay: _Layout):
-    upd = (dint.reshape(-1, lay.I, 3) * lay.int_valid[..., None]).reshape(-1, 3)
+    """``poses`` moved by the root increment and every submap's interior
+    increments (S_all, 3I)."""
+    upd = (dint.reshape(-1, lay.I, 3) * lay.int_valid_all[..., None]).reshape(-1, 3)
     idx = torch.cat([lay.root_node, lay.int_node_safe.reshape(-1)])
     d = torch.cat([(dsep * lay.sep_free).reshape(lay.R, 3), upd])
     new = poses + runtime.index_add(torch.zeros_like(poses), idx, d)
     return torch.cat([new[:, :2], normalize_angle(new[:, 2:])], dim=1)
 
 
-def optimize_loop(poses, g, lay: _Layout, cfg: GlobalFuserConfig):
+def optimize_loop(poses, g, lay: _Layout, cfg: GlobalFuserConfig, group=None):
     """Gauss-Newton with LM damping through the Schur complement, at most
     ``cfg.max_iterations`` iterations; the ``done`` flag is read on the host
-    once per iteration.  Returns (poses, cost, iterations)."""
+    once per iteration.  With a group, the interior increments of every
+    rank's submaps are all-gathered before the update.  Returns (poses,
+    cost, iterations)."""
     robust = PG.robust_spec(cfg)
     scale = cfg.loss_function_scale
     dtype, dev = poses.dtype, poses.device
@@ -419,9 +521,11 @@ def optimize_loop(poses, g, lay: _Layout, cfg: GlobalFuserConfig):
     cost = total_cost(poses, g, robust, scale)
     it = 0
     while it < cfg.max_iterations:
-        C_red, g_red, fact = reduced_system(poses, g, lay, lam, robust, scale)
+        C_red, g_red, fact = reduced_system(poses, g, lay, lam, robust, scale, group)
         dsep = solve_sep(C_red, g_red, lay.sep_free, lam)
         dint = back_substitute(fact, lay, dsep)
+        if group is not None:
+            dint = mesh.all_gather_cat(dint, group)
         trial = apply_delta(poses, dsep, dint, lay)
         cost_new = total_cost(trial, g, robust, scale)
         accept = cost_new < cost
@@ -439,20 +543,24 @@ def optimize_loop(poses, g, lay: _Layout, cfg: GlobalFuserConfig):
 
 @torch.profiler.record_function("randt.pgo_schur")
 def optimize_schur(g: PG.PoseGraph, cfg: GlobalFuserConfig, node_submap,
-                   node_is_root):
+                   node_is_root, group=None):
     """Gauss-Newton via the submap Schur complement.  Gauge: the first ROOT
-    is fixed.  Returns (poses, {"cost", "iterations"})."""
-    lay = _prepare(g, node_submap, node_is_root)
-    poses, cost, iters = optimize_loop(g.poses, g, lay, cfg)
+    is fixed.  With a group, the submaps are sharded over its ranks (module
+    docstring); every rank returns the same poses.  Returns (poses,
+    {"cost", "iterations"})."""
+    lay = _prepare(g, node_submap, node_is_root, group)
+    poses, cost, iters = optimize_loop(g.poses, g, lay, cfg, group)
     return poses, {"cost": float(cost), "iterations": iters}
 
 
 def optimize_auto(g: PG.PoseGraph, cfg: GlobalFuserConfig, node_submap=None,
-                  node_is_root=None, max_update_index=None,
+                  node_is_root=None, group=None, max_update_index=None,
                   dense_node_limit: int = 2048):
     """Route the pose-graph solve by size; returns ``(poses, info)`` with
     ``info["solver"]`` the path taken (``"dense"`` or ``"schur"``) and
-    ``info["two_stage"]`` set when the two-stage robust schedule ran."""
+    ``info["two_stage"]`` set when the two-stage robust schedule ran.  A
+    group shards the Schur route (the dense route runs whole on every rank,
+    as in the JAX package)."""
     N = g.poses.shape[0]
     g = PG._filter_loops(g, max_update_index)
     schur = (N > dense_node_limit and node_submap is not None
@@ -460,7 +568,7 @@ def optimize_auto(g: PG.PoseGraph, cfg: GlobalFuserConfig, node_submap=None,
 
     def solve(graph, c):
         if schur:
-            poses, info = optimize_schur(graph, c, node_submap, node_is_root)
+            poses, info = optimize_schur(graph, c, node_submap, node_is_root, group)
         else:
             poses, info = PG.optimize(graph, c)
         info["solver"] = "schur" if schur else "dense"

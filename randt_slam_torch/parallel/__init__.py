@@ -1,1 +1,2 @@
-"""Multi-sequence batching: B sequences through one front end per device."""
+"""Multi-sequence batching (B sequences through one front end per device)
+and multi-device runs (one process per card, ``mesh.py``)."""

@@ -1,16 +1,21 @@
 """Multi-sequence batching: B sequences of one length through the odometry
-front end on one device.
+front end, on one device or sharded over a group of ranks.
 
-Port of ``randt_slam_tpu/parallel/batch.py`` without its mesh (one device):
-the JAX package runs ``lax.scan(vmap(frontend_step))`` over a (B, T, ...)
-frame batch, BASELINE configs 4-5 ("all 8 Oxford eval sequences batched in
-parallel").  Here :func:`frontend_step` itself takes the batch axis: every
-tensor of the carry and the frame has a leading (B,), and each device
-operation of a frame, the kernels K1, K2, K3a/K3b and K4 included, covers
-all B sequences at once.  So a batched frame makes the launches of one
-sequence, and B sequences share the host's dispatch.  SLAM is sequential in
-time: per-sequence latency is fixed, and fleet throughput scales with the
-batch.
+Port of ``randt_slam_tpu/parallel/batch.py``: the JAX package runs
+``lax.scan(vmap(frontend_step))`` over a (B, T, ...) frame batch, BASELINE
+configs 4-5 ("all 8 Oxford eval sequences batched in parallel"), and with a
+mesh shards the batch axis over ``data`` (``shard_map``).  Here
+:func:`frontend_step` itself takes the batch axis: every tensor of the carry
+and the frame has a leading (B,), and each device operation of a frame, the
+kernels K1, K2, K3a/K3b and K4 included, covers all B sequences at once.
+So a batched frame makes the launches of one sequence, and B sequences
+share the host's dispatch.  SLAM is sequential in time: per-sequence
+latency is fixed, and fleet throughput scales with the batch.
+
+With a group (``parallel/mesh.py``, one process per card), rank r of W runs
+members ``[r B/W, (r+1) B/W)`` on its own card with no communication during
+the scan, and the outputs are gathered at its end, so every rank returns
+the whole batch's, as the JAX package's ``out_specs=P("data")``.
 
 No ScanContext descriptor is made (``with_descriptor=False``): a fleet
 throughput batch runs no loop pass per step, as in the JAX package.
@@ -25,25 +30,71 @@ from .. import runtime
 from ..config import SlamConfig
 from ..pipeline import frontend as F
 from ..pipeline import slam
-from ..pipeline.frontend import init_batched_carry
+from . import mesh
 
 __all__ = ["init_batched_carry", "make_batched_scan"]
 
 
-def make_batched_scan(cfg: SlamConfig, sensor_to_base, device=None):
+def init_batched_carry(cfg: SlamConfig, batch: int, initial_pose=None,
+                       dtype=torch.float32, device=None,
+                       group=None) -> F.FrontendCarry:
+    """:func:`frontend.init_batched_carry` of ``batch`` sequences; with a
+    group, of this rank's share of them (``batch / W`` members), so every
+    rank makes the same call."""
+    lo, hi = mesh.shard_range(batch, group)
+    return F.init_batched_carry(cfg, hi - lo, initial_pose, dtype, device)
+
+
+def _leaves(tree):
+    """The array leaves of a FrameOutput, depth first (None skipped)."""
+    for x in tree:
+        if isinstance(x, tuple):
+            yield from _leaves(x)
+        elif x is not None:
+            yield x
+
+
+def _rebuild(tree, it):
+    items = [_rebuild(x, it) if isinstance(x, tuple) else None if x is None
+             else next(it) for x in tree]
+    return tuple(items) if type(tree) is tuple else type(tree)(*items)
+
+
+def _gather_outputs(outs: F.FrameOutput, group, device) -> F.FrameOutput:
+    """Every rank's (b, T, ...) outputs concatenated over the members, in
+    rank order: one all-gather of their bytes (through ``device``)."""
+    leaves = [np.ascontiguousarray(x) for x in _leaves(outs)]
+    buf = np.concatenate([x.reshape(-1).view(np.uint8) for x in leaves])
+    got = mesh.all_gather_cat(torch.from_numpy(buf).to(device), group).cpu().numpy()
+    per_rank = got.reshape(-1, buf.size)
+    cat, off = [], 0
+    for x in leaves:
+        part = per_rank[:, off:off + x.nbytes]
+        cat.append(np.concatenate([p.view(x.dtype).reshape(x.shape) for p in part]))
+        off += x.nbytes
+    return _rebuild(outs, iter(cat))
+
+
+def make_batched_scan(cfg: SlamConfig, sensor_to_base, device=None, group=None):
     """Returns ``scan_fn(carries, frames, on_frame=None) -> (carries, outs)``
     over a (B, T, ...) frame batch on ``device`` (CUDA unless
     ``device="cpu"``): ``carries`` from :func:`init_batched_carry`,
-    ``frames`` a ``Frame`` of (B, T, ...) tensors (moved to the device
-    once), ``outs`` a ``FrameOutput`` of numpy (B, T, ...) arrays.  The
-    carries passed in are updated in place (the submap store) and must not
-    be used again.  ``on_frame(t, carries)`` is called as in
-    ``pipeline/slam.run_odometry``: before frame ``t`` is stepped."""
+    ``frames`` a ``Frame`` of (B, T, ...) tensors (this rank's members
+    moved to the device once), ``outs`` a ``FrameOutput`` of numpy (B, T,
+    ...) arrays, all B members on every rank.  The carries passed in are
+    updated in place (the submap store) and must not be used again; they
+    stay this rank's.  ``on_frame(t, carries)`` is called as in
+    ``pipeline/slam.run_odometry``: before frame ``t`` is stepped.  With a
+    group, B must divide by its size."""
     dev = runtime.resolve_device(device)
     s2b = torch.as_tensor(np.asarray(sensor_to_base, np.float32)).to(dev)
 
     def scan_fn(carries: F.FrontendCarry, frames: F.Frame, on_frame=None):
-        frames = F.Frame(*(x.to(dev) for x in frames))
+        lo, hi = mesh.shard_range(frames.stamp.shape[0], group)
+        if carries.cur_pose.shape[0] != hi - lo:
+            raise ValueError(f"carries of {carries.cur_pose.shape[0]} members for "
+                             f"this rank's {hi - lo}")
+        frames = F.Frame(*(x[lo:hi].to(dev) for x in frames))
         outs = []
         for t in range(frames.stamp.shape[1]):
             if on_frame is not None:
@@ -52,6 +103,9 @@ def make_batched_scan(cfg: SlamConfig, sensor_to_base, device=None):
             carries, out = F.frontend_step(cfg, carries, fr, s2b,
                                            with_descriptor=False)
             outs.append(out)
-        return carries, slam.stack_outputs(outs, batch=frames.stamp.shape[0])
+        outs = slam.stack_outputs(outs, batch=hi - lo)
+        if group is not None:
+            outs = _gather_outputs(outs, group, dev)
+        return carries, outs
 
     return scan_fn

@@ -17,7 +17,10 @@ reads the reference's layered YAML files in place of the preset.
 and after the last frame, before the bag-end ``finalize`` (offline: the
 final carry); ``--resume`` continues an online run from such a file to the
 trajectory the uninterrupted run gives; ``--viz-every`` overwrites
-``live/`` with the current map view while an online run goes on.
+``live/`` with the current map view while an online run goes on.  With
+``RANDT_COORDINATOR``, ``RANDT_NUM_PROCESSES`` and ``RANDT_PROCESS_ID`` set
+(``parallel/mesh.py``), each process first joins the group as one rank and
+prints ``distributed: process i/n, n devices``.
 
 Usage:
     python -m randt_slam_torch.run --input synthetic --config synthetic \\
@@ -195,6 +198,27 @@ def run_online(args, cfg, frames, device, prof):
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
+    # multi-host entry (BASELINE config 5), first as in the JAX CLI: a no-op
+    # unless the launcher set RANDT_COORDINATOR, RANDT_NUM_PROCESSES and
+    # RANDT_PROCESS_ID; then this process is one rank of the default group,
+    # bound to its own card (gloo ranks with --device cpu).  No CLI path
+    # shards its work: the sharded paths are library calls with a group.
+    import torch.distributed as dist
+
+    from .parallel.mesh import init_distributed
+
+    joined = init_distributed(device=args.device)
+    if joined:
+        print(f"distributed: process {dist.get_rank()}/{dist.get_world_size()}, "
+              f"{dist.get_world_size()} devices")
+    try:
+        return _run(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _run(args):
     import numpy as np
 
     from . import runtime

@@ -43,7 +43,7 @@ Phases (any failed check raises and the script exits non-zero):
    and K1's, K2's, K3a's, K3b's, K4's and K5's times in their earlier
    designs (PERF.md);
 4. per odometry path, ``run_odometry`` over rendered frames of that
-   geometry (80 with the switches on, 30 off): exact launch counts (K1 and K2 once per frame; per
+   geometry (60 with the switches on, 30 off): exact launch counts (K1 and K2 once per frame; per
    ``estimate_window`` call K3a and K4 gnc_steps x lm_max_iterations times
    and K3b
    2 + gnc_steps x (1 + lm_max_iterations) times on the switches-on path,
@@ -51,17 +51,24 @@ Phases (any failed check raises and the script exits non-zero):
    rendered ground truth within the band below; steady frames/s and
    ms/frame (frames 20 to the end, timed inside the run), and the host's
    CPU model, clock and load beside them;
-5. per odometry path, the first 20 frames twice on the card
-   (bitwise-identical poses) and once on the CPU, where the kernels' plain
-   versions run (identical node/edge tables, poses within 1e-2 m and 1e-3
-   rad on every frame);
+5. per odometry path, the first 20 frames twice on the card, the second
+   time from host memory in chunks of 8 (``frames_from_arrays(...,
+   host=True)``, ``run_odometry(..., chunk=8)``: chunks of 8, 8 and 4, some
+   nodes leaving the keyframe queue in the chunk after their source
+   frame's), bitwise-identical poses, node and edge tables and node
+   descriptors; and once on the CPU, where the kernels' plain versions run
+   (identical node/edge tables, poses within 1e-2 m and 1e-3 rad on every
+   frame);
 6. per odometry path, a ``torch.profiler`` window over its first two frames
    (one solved): device busy share, launches per LM iteration, the kernels that take the device time, and
    host and device time per layer of the port; the switches-on window must
    hold no LU (``getrf``/``getrs``) kernel and no autograd pass over the NDT
    residuals (``randt.ndt_autograd``);
 7. full SLAM: ``run_slam`` over a looping drive of that geometry (240
-   frames, 1.5 laps of 160 m): ScanContext candidates, accepted loop edges
+   frames, 1.5 laps of 160 m), the frames in host memory and uploaded 64 at
+   a time (``run_slam(..., chunk=64)``, as the JAX package's bench.py runs
+   its end-to-end window): each chunk's seconds, the odometry's peak device
+   memory and the frames' size; ScanContext candidates, accepted loop edges
    (at least one) and odometry-gate rejections; finite poses; the dense
    pose-graph route with the two-stage DCS schedule; odometry and post-PGO
    node ATE against the rendered ground truth (post-PGO no worse than 1.05 x
@@ -77,9 +84,10 @@ Phases (any failed check raises and the script exits non-zero):
    1e-4 relative; free-running, the refined edges within one ulp-decided LM
    step and the CS divergences within the band below);
 8. the occupancy grid of that run: ``render_ogm`` at the Oxford OGM
-   configuration (13 submaps of 3990 x 3990 int32 counts), twice on the
-   card and once on the CPU: exact launches (K1 once per keyframe node,
-   nothing else), the counting grids bitwise equal across the three runs
+   configuration (13 submaps of 3990 x 3990 int32 counts), the node frames
+   gathered from host memory 32 at a time, twice on the card and once on
+   the CPU: exact launches (K1 once per chunk of 32 keyframe nodes, nothing
+   else), the counting grids bitwise equal across the three runs
    and the occupancy within 1e-5; wall seconds, peak device memory and the
    counts' range; a third card run under the profiler (device busy share,
    launches, top kernels);
@@ -101,11 +109,14 @@ Phases (any failed check raises and the script exits non-zero):
    finite poses; post-PGO node ATE no worse than 1.05 x the node ATE as
    odometry emitted the nodes; the odometry trace bitwise equal to phase
    7's on every frame before the first re-anchoring; steady ms/frame
-   beside phase 7's odometry, stage medians, candidates refined, peak
-   device memory.  A checkpoint after frame 178 (its size, save and load
-   seconds): a fresh engine resumes it on the card to the end, bitwise
-   equal to the uninterrupted run (odometry, trajectory, edges, counting
-   grids; K1 and K2 once more per restored-frame node), and one cadence
+   beside phase 7's odometry, stage medians, candidates refined; the
+   counting grids on the card (those of submaps that can still receive
+   nodes) and in host memory (the finished ones), with their bytes, and no
+   grid uploaded again; peak device memory.  A checkpoint after frame 178
+   (its size, save and load seconds): a fresh engine resumes it on the
+   card to the end, bitwise equal to the uninterrupted run (odometry,
+   trajectory, edges, counting grids, whether on the card or the host; K1
+   and K2 once more per restored-frame node), and one cadence
    from it on the CPU and on the card gives the same candidates and edges,
    refined edges and CS within the bands below and optimized poses within
    1e-3 m / 1e-4 rad;
@@ -168,10 +179,14 @@ BIN_W = 0.0864          # m: Oxford bins after the 2x downsampling of io/oxford
 MAX_RANGE = 100.0
 # odometry main runs per switch setting (the switches-off path, the earlier
 # and slower one, is cut deeper to keep the script inside its time on a slow
-# host: 40 frames until online SLAM joined; full SLAM drives the switches-on
-# path over 240 frames)
-N_FRAMES = {"on": 80, "off": 30}
+# host: 40 frames until online SLAM joined; the switches-on one went from 80
+# to 60 frames when the long-sequence path joined phases 5, 7, 8 and 10;
+# full SLAM drives the switches-on path over 240 frames)
+N_FRAMES = {"on": 60, "off": 30}
 N_SHORT = 20
+SHORT_CHUNK = 8         # phase 5's host-resident run: chunks of 8, 8 and 4
+LOOP_CHUNK = 64         # phase 7's host-resident run
+OGM_CHUNK = 32          # phase 8: node frames per batched filter (K1) call
 # the odometry drive as rendered since PR 1 (its trajectory depends on its
 # length): the runs take its first frames, the kernel checks its middle frame
 N_RENDER = 160
@@ -182,6 +197,9 @@ LOOP_LAPS = 1.5
 # cadence multiple, so loop queries are pending)
 N_ONLINE = 200
 ONLINE_SAVE_AT = 178
+# phase 10's peak device memory while every counting grid (11) and phase 7's
+# frames stayed on the card (PERF.md, NVIDIA H100 80GB HBM3 at 700 W)
+ONLINE_PEAK_RESIDENT_GIB = 2.394
 ATE_BAND_M = 0.25       # odometry ATE over the main runs (40-80 m driven)
 # free-running loop closure on the CPU against the card's, from one odometry
 # result: refined edges (m, rad) and CS divergences (relative); twice the
@@ -965,19 +983,36 @@ def run_path(label, cfg, frames, short, first, gt, dev, scans, az, ranges, stamp
     from randt_slam_torch.ops import build
     from randt_slam_torch.pipeline import slam
 
-    # ---- 5. (first part) two CUDA runs of the first frames ------------------
+    # ---- 5. (first part) two CUDA runs of the first frames: the second from
+    # host memory in chunks of SHORT_CHUNK (a node leaves the keyframe queue
+    # insertion_delay frames after its source frame, so some straddle a
+    # chunk boundary) ----------------------------------------------------------
     t0 = time.perf_counter()
     r_a = first if first is not None else slam.run_odometry(cfg, short, device=dev)
     cold = time.perf_counter() - t0
+    host = slam.frames_from_arrays(scans[:N_SHORT], az, ranges, stamps[:N_SHORT],
+                                   host=True)
     t0 = time.perf_counter()
-    r_b = slam.run_odometry(cfg, short, device=dev)
+    r_b = slam.run_odometry(cfg, host, device=dev, chunk=SHORT_CHUNK)
     wall_short = time.perf_counter() - t0
-    for k in ("odom_poses", "node_pose", "edge_trans"):
+    for k in ("odom_poses", "node_pose", "edge_trans", "node_desc", "node_id",
+              "node_frame", "node_submap", "node_is_root", "edge_begin", "edge_end",
+              "edge_sqrt_information"):
         if not np.array_equal(getattr(r_a, k), getattr(r_b, k)):
-            raise AssertionError(f"switches {label}: two CUDA runs differ in {k}")
-    print(f"switches {label}: two CUDA runs of {N_SHORT} frames: bitwise-identical "
-          f"poses ({'captured above' if first is not None else f'{cold:.2f} s cold'}, "
-          f"{wall_short:.2f} s warm)", flush=True)
+            raise AssertionError(f"switches {label}: the chunked host-resident run "
+                                 f"differs from the resident one in {k}")
+    exits = np.asarray(r_b.node_frame) + cfg.local_fuser.insertion_delay
+    straddle = int(np.sum(r_b.node_frame // SHORT_CHUNK < exits // SHORT_CHUNK))
+    if not straddle or len(r_b.chunk_seconds) != -(-N_SHORT // SHORT_CHUNK):
+        raise AssertionError(f"switches {label}: no node across a chunk boundary, or "
+                             f"{len(r_b.chunk_seconds)} chunks")
+    print(f"switches {label}: two CUDA runs of {N_SHORT} frames, the second "
+          f"host-resident in chunks of {SHORT_CHUNK} ({straddle} nodes leave the "
+          f"queue in the chunk after their source frame's): bitwise-identical poses, "
+          f"tables and node descriptors "
+          f"({'captured above' if first is not None else f'{cold:.2f} s cold'}, "
+          f"{wall_short:.2f} s warm; chunk seconds "
+          f"{[round(x, 3) for x in r_b.chunk_seconds]})", flush=True)
 
     # ---- 4. the main path ----------------------------------------------------
     n_frames = N_FRAMES[label]
@@ -1132,15 +1167,19 @@ def slam_phase(cfg, dev):
     print(f"full SLAM: rendered a looping drive of {N_LOOP} frames ({LOOP_LAPS} "
           f"laps of {N_LOOP / LOOP_LAPS:.0f} m) in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    frames = slam.frames_from_arrays(scans, az, ranges, stamps, device=dev)
+    # in host memory, as the JAX package's bench.py runs its end-to-end
+    # window: run_slam uploads them LOOP_CHUNK at a time
+    frames = slam.frames_from_arrays(scans, az, ranges, stamps, host=True)
+    frame_bytes = sum(x.nbytes for x in frames)
 
     # the loop phase, watched from inside run_slam: its kernel launches and
-    # its peak device memory
+    # its peak device memory, and the odometry's before it
     watch = {}
     detect = detector.detect_loops
 
     def watched(*a, **k):
         torch.cuda.synchronize(dev)
+        watch["odometry_peak"] = torch.cuda.max_memory_allocated(dev)
         before = dict(build.LAUNCHES)
         torch.cuda.reset_peak_memory_stats(dev)
         watch["resident"] = torch.cuda.memory_allocated(dev)
@@ -1155,8 +1194,11 @@ def slam_phase(cfg, dev):
     try:
         with counting_solves() as solves:
             build.reset_launches()
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            watch["before"] = torch.cuda.memory_allocated(dev)
             t0 = time.perf_counter()
-            res = slam.run_slam(cfg, frames, device=dev)
+            res = slam.run_slam(cfg, frames, device=dev, chunk=LOOP_CHUNK)
             torch.cuda.synchronize(dev)
             wall = time.perf_counter() - t0
             launches = dict(build.LAUNCHES)
@@ -1211,6 +1253,16 @@ def slam_phase(cfg, dev):
           f"launched once per candidate frame ({n_cand}), peak device memory "
           f"{watch['peak'] / 2**30:.3f} GiB ({watch['resident'] / 2**30:.3f} GiB "
           f"resident before it); run launches {launches}", flush=True)
+    cs = odo.chunk_seconds
+    if len(cs) != -(-N_LOOP // LOOP_CHUNK):
+        raise AssertionError(f"full SLAM: {len(cs)} odometry chunks")
+    print(f"full SLAM, host-resident frames in chunks of {LOOP_CHUNK}: chunk seconds "
+          f"{[round(x, 3) for x in cs]} ({1e3 * cs[1:].sum() / (N_LOOP - LOOP_CHUNK):.1f} "
+          f"ms/frame after the first chunk); odometry peak device memory "
+          f"{watch['odometry_peak'] / 2**30:.3f} GiB ({watch['before'] / 2**30:.3f} "
+          f"GiB resident before it); the {N_LOOP} frames take {frame_bytes / 2**20:.1f} "
+          f"MiB of host memory ({frame_bytes / N_LOOP / 2**20:.2f} MiB a frame), which "
+          f"they would take on the card if resident", flush=True)
 
     # ---- the loop and pose-graph phases again: twice on the card (the second
     # under the profiler), once on the CPU, from the same odometry result
@@ -1391,10 +1443,11 @@ def schur_phase(dev, smi):
 
 def ogm_phase(cfg, res, frames, dev):
     """Phase 8: ``render_ogm`` on the full-SLAM run's result at the Oxford
-    OGM configuration, twice on the card (exact launches: K1 once per
-    keyframe node and nothing else; bitwise-equal grids) and once on the
-    CPU (counting grids bitwise equal, occupancy within 1e-5).  Returns the
-    card run's K1 launches."""
+    OGM configuration, the node frames gathered from host memory OGM_CHUNK
+    at a time, twice on the card (exact launches: K1 once per chunk and
+    nothing else; bitwise-equal grids) and once on the CPU (counting grids
+    bitwise equal, occupancy within 1e-5).  Returns the card run's K1
+    launches."""
     import torch
 
     from randt_slam_torch.ops import build
@@ -1406,19 +1459,21 @@ def ogm_phase(cfg, res, frames, dev):
     resident = torch.cuda.memory_allocated(dev)
     build.reset_launches()
     t0 = time.perf_counter()
-    occ, grids = slam.render_ogm(cfg, res, frames, device=dev)
+    occ, grids = slam.render_ogm(cfg, res, frames, device=dev, chunk=OGM_CHUNK)
     cold = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
-    want = {n: (n_nodes if n == "row_windows" else 0) for n in launches}
+    n_chunks = -(-n_nodes // OGM_CHUNK)
+    want = {n: (n_chunks if n == "row_windows" else 0) for n in launches}
     if launches != want:
         raise AssertionError(f"render_ogm launched {launches}, expected K1 once per "
-                             f"node ({n_nodes}) and nothing else")
+                             f"chunk of {OGM_CHUNK} of the {n_nodes} nodes and "
+                             f"nothing else")
     t0 = time.perf_counter()
-    occ2, grids2 = slam.render_ogm(cfg, res, frames, device=dev)
+    occ2, grids2 = slam.render_ogm(cfg, res, frames, device=dev, chunk=OGM_CHUNK)
     steady = time.perf_counter() - t0
     _, pw, rows, total, layers = profile_window(
-        lambda: slam.render_ogm(cfg, res, frames, device=dev))
+        lambda: slam.render_ogm(cfg, res, frames, device=dev, chunk=OGM_CHUNK))
     print(f"profile, render_ogm (a third card run): wall {pw * 1e3:.1f} ms, device "
           f"busy {total / 1e3:.1f} ms ({100 * total / 1e6 / pw:.1f}% of wall), "
           f"{sum(r[1] for r in rows)} device launches", flush=True)
@@ -1426,13 +1481,13 @@ def ogm_phase(cfg, res, frames, dev):
     if not (np.array_equal(grids, grids2) and np.array_equal(occ, occ2)):
         raise AssertionError("render_ogm: two card runs differ")
     t0 = time.perf_counter()
-    occ_c, grids_c = slam.render_ogm(cfg, res, frames, device="cpu")
+    occ_c, grids_c = slam.render_ogm(cfg, res, frames, device="cpu", chunk=OGM_CHUNK)
     cpu_s = time.perf_counter() - t0
     d_occ = float(np.abs(occ - occ_c).max())
     o = cfg.ogm
     print(f"OGM: render_ogm on the full-SLAM result ({n_nodes} nodes, "
           f"{res.odometry.n_submaps} submaps of {o.submap_size_y}x{o.submap_size_x} "
-          f"int32 cells, global {o.size_y}x{o.size_x} at {o.resolution} m): card "
+          f"int32 cells, node frames from host memory in chunks of {OGM_CHUNK}, global {o.size_y}x{o.size_x} at {o.resolution} m): card "
           f"{cold:.3f} s cold, {steady:.3f} s steady; peak device memory "
           f"{peak / 2**30:.3f} GiB ({resident / 2**30:.3f} GiB resident before); "
           f"launches {launches}; counts {int(grids.min())}..{int(grids.max())}, "
@@ -1474,8 +1529,12 @@ def online_phase(cfg, res, frames, gt, dev, smi):
     cfg = dataclasses.replace(cfg, visualize_ogm=True)
     n = N_ONLINE
 
+    # phase 7's frames are in host memory: pinned, each frame is uploaded
+    # on the compute stream without a wait
+    pinned = F.Frame(*(x[:n].pin_memory() for x in frames))
+
     def frame(t):
-        return F.Frame(*(x[t] for x in frames))
+        return F.Frame(*(x[t].to(dev, non_blocking=True) for x in pinned))
 
     eng = OnlineSlam(cfg, device=dev)
     # watched on the instance: the pose-graph ticks (loop edges, whether the
@@ -1532,6 +1591,10 @@ def online_phase(cfg, res, frames, gt, dev, smi):
         wall = time.perf_counter() - t0
         launches = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
+    place = eng.grid_placement()
+    if place["reuploads"] or not place["host"]:
+        raise AssertionError(f"online SLAM: counting grids {place}: a grid went back to "
+                             f"the card, or none of a finished submap left it")
     want = expected_launches(cfg, n, solves[0])
     if launches != want:
         raise AssertionError(f"online SLAM launched {launches} over {n} frames and "
@@ -1575,11 +1638,14 @@ def online_phase(cfg, res, frames, gt, dev, smi):
           f"{med['loops']:.1f}, pgo {med['pgo']:.1f} ms ({len(eng.stage_walls['loops'])} "
           f"loop cadences, {len(eng.stage_walls['pgo'])} pose-graph cadences); loop "
           f"candidates refined {len(eng.loop_trace)}, accepted {accepted} "
-          f"(loop edges {eng.n_loop_edges}); {len(traj)} nodes, "
-          f"{len(eng._count_grids)} counting grids; launches {launches} "
-          f"({solves[0]} window solves; loop cadences and refinements none); peak "
-          f"device memory {peak / 2**30:.3f} GiB ({resident / 2**30:.3f} GiB resident "
-          f"before)", flush=True)
+          f"(loop edges {eng.n_loop_edges}); {len(traj)} nodes; counting grids: "
+          f"{place['device']} on the card ({place['device_bytes'] / 2**20:.1f} MiB), "
+          f"{place['host']} in host memory ({place['host_bytes'] / 2**20:.1f} MiB), "
+          f"{place['reuploads']} re-uploads; launches {launches} ({solves[0]} window "
+          f"solves; loop cadences and refinements none); peak device memory "
+          f"{peak / 2**30:.3f} GiB ({resident / 2**30:.3f} GiB resident before), "
+          f"beside {ONLINE_PEAK_RESIDENT_GIB} GiB with every grid and the frames on "
+          f"the card", flush=True)
     print(f"host after online SLAM: {host_cpu()}", flush=True)
     print(f"online SLAM: pose-graph ticks {[(k['frame'], k['loops'], k['moved'], round(k['s'], 3)) for k in ticks]} "
           f"(frame count, loop edges, origin moved, s); first re-anchoring after "
@@ -1589,7 +1655,7 @@ def online_phase(cfg, res, frames, gt, dev, smi):
     t0 = time.perf_counter()
     occ = eng.render_ogm()
     render_s = time.perf_counter() - t0
-    grids = [g.cpu().numpy() for g in eng._count_grids.values()]
+    grids = list(eng.count_grids().values())
     if not (np.isfinite(occ).all() and min(g.min() for g in grids) < 0
             and max(g.max() for g in grids) >= 2 and (occ >= 0).any()):
         raise AssertionError("online render_ogm: no free-space or hit counts, or a "
@@ -1618,9 +1684,10 @@ def online_phase(cfg, res, frames, gt, dev, smi):
             and [e[:2] for e in again.edges] == [e[:2] for e in eng.edges]
             and all(np.array_equal(a[2], b[2]) and np.array_equal(a[3], b[3])
                     for a, b in zip(again.edges, eng.edges))
-            and again._count_grids.keys() == eng._count_grids.keys()
-            and all(torch.equal(again._count_grids[k], eng._count_grids[k])
-                    for k in eng._count_grids))
+            and again.count_grids().keys() == eng.count_grids().keys()
+            and all(np.array_equal(again.count_grids()[k], g)
+                    for k, g in eng.count_grids().items())
+            and again.grid_placement()["reuploads"] == 0)
     if not same:
         raise AssertionError("the resumed run differs from the uninterrupted one")
     print(f"online checkpoint after frame {ONLINE_SAVE_AT} ({saved_nodes} nodes, "

@@ -407,15 +407,32 @@ def pack_polar_image(points_xyi, azimuth0, azimuth_step, n_azimuths,
                      r0, bin_width, n_bins):
     """(n, 3) float32 [x, y, intensity] -> (A, R) float32 polar image:
     azimuth rows ``azimuth0 + k * azimuth_step`` (wrapping), range bins
-    ``r0 + j * bin_width``, intensities max-combined per bin."""
-    pts = np.ascontiguousarray(points_xyi, np.float32)
-    out = np.zeros((n_azimuths, n_bins), np.float32)
+    ``r0 + j * bin_width``, intensities max-combined per bin.
+
+    The arithmetic of the JAX package's native ``pack_polar_image``
+    (``native/randt_native.cpp``), in float32: the azimuth position is
+    wrapped into one turn and rounded half away from zero (``lround``; after
+    the wrap it is non-negative, so ``floor(rel + 0.5)``, taken in float64
+    where the sum is exact), and a bin takes an intensity only when it is
+    greater than the bin's value, so NaN and non-positive intensities are
+    never written.  The azimuth is the float64 ``arctan2`` rounded to
+    float32, within an ulp of the C library's ``atan2f`` (numpy's float32
+    ``arctan2`` puts the point (1, 1) an ulp below pi / 4)."""
+    f32 = np.float32
+    pts = np.ascontiguousarray(points_xyi, f32)
+    out = np.zeros((n_azimuths, n_bins), f32)
     r = np.hypot(pts[:, 0], pts[:, 1])
-    a = np.arctan2(pts[:, 1], pts[:, 0])
-    ai = np.rint((a - azimuth0) / azimuth_step).astype(np.int64) % n_azimuths
-    ri = np.floor((r - r0) / bin_width).astype(np.int64)
-    ok = (ri >= 0) & (ri < n_bins)
-    np.maximum.at(out, (ai[ok], ri[ok]), pts[ok, 2])
+    a = np.arctan2(pts[:, 1].astype(np.float64),
+                   pts[:, 0].astype(np.float64)).astype(f32)
+    step = f32(azimuth_step)
+    turn = f32(2 * np.pi) / step
+    rel = (a - f32(azimuth0)) / step
+    rel = rel - np.floor(rel / turn) * turn
+    ai = np.floor(rel.astype(np.float64) + 0.5).astype(np.int64) % n_azimuths
+    ri = np.floor((r - f32(r0)) / f32(bin_width)).astype(np.int64)
+    inten = pts[:, 2]
+    ok = (ri >= 0) & (ri < n_bins) & (inten > 0)
+    np.maximum.at(out, (ai[ok], ri[ok]), inten[ok])
     return out
 
 

@@ -222,6 +222,15 @@ def init_carry(cfg: SlamConfig, initial_pose=None, dtype=torch.float32,
     )
 
 
+def node_source_horizon(cfg: SlamConfig) -> int:
+    """How many frames before the frame that emits it a node's source frame
+    can lie: a keyframe queued at frame t exits ``insertion_delay`` frames
+    later at the earliest, and can back up behind up to ``keyframe_queue``
+    earlier entries spaced ``insertion_step`` apart."""
+    lf = cfg.local_fuser
+    return lf.insertion_delay + lf.insertion_step * cfg.capacity.keyframe_queue + 2
+
+
 def init_batched_carry(cfg: SlamConfig, batch: int, initial_pose=None,
                        dtype=torch.float32, device=None) -> FrontendCarry:
     """:func:`init_carry` broadcast over ``batch`` sequences: every tensor

@@ -21,8 +21,10 @@ rate):
 
 Per frame the host reads everything its graph logic needs (node poses,
 stamps, distances and source frames, edge transforms, the odometry pose,
-the rejection flag) in ONE device-to-host copy.  The ScanContext database,
-the per-node scan cells and the counting grids stay on the device.
+the rejection flag) in ONE device-to-host copy.  The ScanContext database
+and the per-node scan cells stay on the device; so does the counting grid
+of each submap that can still receive nodes, while a finished submap's
+grid moves to host memory, as the JAX package keeps all of them there.
 """
 
 from __future__ import annotations
@@ -97,8 +99,12 @@ class OnlineSlam:
         # per-frame pose-jump rejections (``ndt_matcher.cpp:411-422``)
         self.rejected_trace: list[bool] = []
         self.odom_trace: list[np.ndarray] = []
-        # per-submap OGM counting grids, (sh, sw) int32 on the device
-        self._count_grids: dict[int, torch.Tensor] = {}
+        # per-submap OGM counting grids, (sh, sw) int32: a tensor on the
+        # device while the submap can still receive nodes, a numpy array in
+        # host memory once it cannot (``_retire_grids``); a node traced into
+        # a grid on the host brings it back and is counted here
+        self._count_grids: dict[int, torch.Tensor | np.ndarray] = {}
+        self.grid_reuploads = 0
         # per-stage wall clocks
         self.stage_walls: dict[str, list] = {
             "step": [], "record": [], "loops": [], "pgo": []}
@@ -205,6 +211,9 @@ class OnlineSlam:
         if grid is None:
             grid = torch.zeros((o.submap_size_y, o.submap_size_x), dtype=torch.int32,
                                device=self.device)
+        elif isinstance(grid, np.ndarray):
+            self.grid_reuploads += 1
+            grid = torch.from_numpy(grid).to(self.device)
         # root and node move together under the pose graph, so their
         # relative pose stays consistent
         origin = self._put(self._submap_origin(submap_id, store_root))
@@ -212,6 +221,42 @@ class OnlineSlam:
         self._count_grids[submap_id] = RT.raytrace_beams(
             grid, sensor.expand(beams.shape[0], 3), beams, beam_mask, o.resolution,
             max_steps=ogm_max_steps(self.cfg))
+
+    def _retire_grids(self):
+        """Move to host memory the counting grids of the submaps the front
+        end can no longer emit a node into.  A node record's ``submap_id``
+        is the front end's ``n_finished`` at the step that emits it: a
+        keyframe exit goes into the submap its scan was queued in, a root
+        node into the submap it starts.  The step that finishes submap s
+        (its trajectory reaches ``submap_size_poses``) emits s's last
+        keyframe exit in slot 0, then starts s + 1 with an empty keyframe
+        queue, so the keyframes still queued in s are dropped, never
+        emitted.  After that step has been recorded, every submap below
+        ``n_finished`` is finished; ``submap_overlap`` only lets the new
+        submap register against s, it sends no node there."""
+        done = self.carry.n_finished
+        for s, grid in self._count_grids.items():
+            if s < done and isinstance(grid, torch.Tensor):
+                self._count_grids[s] = grid.cpu().numpy()
+
+    def _grid_on_device(self, submap_id: int) -> torch.Tensor:
+        grid = self._count_grids[submap_id]
+        if isinstance(grid, np.ndarray):
+            return torch.from_numpy(grid).to(self.device)
+        return grid
+
+    def count_grids(self) -> dict:
+        """Every counting grid as a host int32 array, by submap id."""
+        return {s: g.cpu().numpy() if isinstance(g, torch.Tensor) else g
+                for s, g in sorted(self._count_grids.items())}
+
+    def grid_placement(self) -> dict:
+        """How many counting grids, and how many bytes, are on the device
+        and in host memory."""
+        dev = [g.nbytes for g in self._count_grids.values() if isinstance(g, torch.Tensor)]
+        host = [g.nbytes for g in self._count_grids.values() if isinstance(g, np.ndarray)]
+        return dict(device=len(dev), device_bytes=sum(dev), host=len(host),
+                    host_bytes=sum(host), reuploads=self.grid_reuploads)
 
     @torch.profiler.record_function("randt.online_refine")
     def _refine_and_gate(self, sub: int, poses: torch.Tensor, yaw, cells):
@@ -254,16 +299,12 @@ class OnlineSlam:
         self._recent_frames[idx] = frame
         self._recent_feats[idx] = (out.sc_desc, out.scan_cells, out.beams,
                                    out.beam_mask)
-        # horizon: a keyframe queued at frame t exits ``insertion_delay``
-        # frames later at the earliest, and can back up behind up to
-        # ``keyframe_queue`` earlier entries spaced ``insertion_step`` apart
-        lf = self.cfg.local_fuser
-        horizon = (lf.insertion_delay
-                   + lf.insertion_step * self.cfg.capacity.keyframe_queue + 2)
+        horizon = F.node_source_horizon(self.cfg)
         for buf in (self._recent_frames, self._recent_feats):
             for k in [k for k in buf if k < idx - horizon]:
                 del buf[k]
         self._record_outputs(out, h)
+        self._retire_grids()
         self.odom_trace.append(h["odom_pose"])
         self.rejected_trace.append(h["rejected"])
         self.stage_walls["record"].append(_pc() - t0)
@@ -384,8 +425,9 @@ class OnlineSlam:
                             -0.5 * o.submap_size_y * o.resolution, 0.0])
         g_corner = self._put([-0.5 * o.size_x * o.resolution,
                               -0.5 * o.size_y * o.resolution, 0.0])
+        # one grid on the device at a time beside the live ones
         total = OGM.fuse_submaps(
-            torch.stack([self._count_grids[s] for s in subs]),
+            (self._grid_on_device(s) for s in subs),
             OGM.compose(origins, corner.expand_as(origins)), o.resolution,
             o.resolution, g_corner, o.size_y, o.size_x)
         return OGM.global_occupancy(total).cpu().numpy()
@@ -432,10 +474,10 @@ class OnlineSlam:
         if ids:
             for j, name in enumerate(("cells_mean", "cells_cov", "cells_valid")):
                 host[name] = stacked([self._node_cells[i][j] for i in ids])
-        subs = sorted(self._count_grids)
-        host["ogm_ids"] = np.asarray(subs, np.int64)
-        if subs:
-            host["ogm_grids"] = stacked([self._count_grids[s] for s in subs])
+        grids = self.count_grids()
+        host["ogm_ids"] = np.asarray(list(grids), np.int64)
+        if grids:
+            host["ogm_grids"] = np.stack(list(grids.values()))
         fids = sorted(self._recent_frames)
         host["recent_ids"] = np.asarray(fids, np.int64)
         if fids:
@@ -494,7 +536,9 @@ class OnlineSlam:
                             for j, i in enumerate(ids)}
         subs = [int(v) for v in h("ogm_ids")]
         grids = h("ogm_grids") if subs else None
-        self._count_grids = {s: put(grids[j]) for j, s in enumerate(subs)}
+        # the grids of finished submaps stay in host memory
+        self._count_grids = {s: grids[j] if s < self.carry.n_finished else put(grids[j])
+                             for j, s in enumerate(subs)}
         fids = [int(v) for v in h("recent_ids")]
         fields = {f: h(f"recent/{f}") for f in F.Frame._fields} if fids else {}
         self._recent_frames = {

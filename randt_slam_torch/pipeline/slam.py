@@ -14,8 +14,12 @@ C. one pose-graph solve (``graph/schur.optimize_auto``) and the submap
 
 :func:`run_slam` runs all three.  The frames live on the device for the
 whole run and the odometry step never waits on it; its outputs are fetched
-once, after the last frame.  :func:`render_ogm` makes the occupancy grid of
-a finished run.
+once, after the last frame.  For sequences too long for that
+(``frames_from_arrays(..., host=True)`` and ``run_odometry(..., chunk=)``)
+the frames stay in host memory and go to the device one chunk at a time,
+the next chunk's upload overlapping the current chunk, and each chunk's
+outputs come back to the host at its end.  :func:`render_ogm` makes the
+occupancy grid of a finished run.
 """
 
 from __future__ import annotations
@@ -60,14 +64,21 @@ class OdometryResult:
     saturation: dict = dataclasses.field(default_factory=dict)
     # ScanContext descriptors of every node's source frame (float32)
     node_desc: np.ndarray | None = None
+    # wall seconds of each chunk of a chunked run (empty otherwise): from
+    # the end of the previous chunk to this chunk's outputs on the host
+    chunk_seconds: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.float64))
 
 
 def frames_from_arrays(intensity, azimuths, ranges, stamps, imu_yaw=None,
-                       device=None):
+                       device=None, host=False):
     """Stack a sequence into a Frame of (T, ...) tensors on ``device`` (CUDA
-    unless ``device="cpu"``).  float16/uint8 scans keep their type (a half or
-    a quarter of the float32 upload); the front end upcasts on the device."""
-    dev = runtime.resolve_device(device)
+    unless ``device="cpu"``), or with ``host=True`` in host memory, where
+    long sequences wait for ``run_odometry(..., chunk=)`` to upload them
+    chunk by chunk.  float16/uint8 scans keep their type (a half or a
+    quarter of the float32 memory and upload); the front end upcasts on the
+    device."""
+    dev = torch.device("cpu") if host else runtime.resolve_device(device)
     intensity = np.asarray(intensity)
     T, A, Rb = intensity.shape
     if imu_yaw is None:
@@ -147,6 +158,69 @@ def _unstack_outputs(outs: F.FrameOutput) -> dict:
     return {**node, **edge}
 
 
+def _chunk_uploads(frames: F.Frame, chunk: int, dev):
+    """Host-resident ``frames`` on ``dev``, one chunk of ``chunk`` frames at
+    a time: yields (lo, hi, Frame of frames lo..hi-1 on ``dev``).
+
+    On CUDA each chunk is copied on a side stream from one of two pinned
+    staging buffers, which alternate between chunks.  Chunk i+1's copy is
+    issued when chunk i is handed out, so it runs while the host dispatches
+    chunk i; the compute stream waits on the copy's event before the chunk's
+    first frame, and ``record_stream`` keeps a chunk's memory from being
+    reused while work queued on the compute stream may still read it.  The
+    host waits only on copy events, never on the compute stream."""
+    T = int(frames.stamp.shape[0])
+    bounds = [(lo, min(lo + chunk, T)) for lo in range(0, T, chunk)]
+    if dev.type != "cuda" or frames.stamp.device == dev:
+        for lo, hi in bounds:
+            yield lo, hi, F.Frame(*(x[lo:hi].to(dev) for x in frames))
+        return
+    side = torch.cuda.Stream(dev)
+    compute = torch.cuda.current_stream(dev)
+    staging = [[torch.empty((chunk,) + tuple(x.shape[1:]), dtype=x.dtype).pin_memory()
+                for x in frames] for _ in range(2)]
+    copied = [None, None]  # the last copy out of each staging buffer
+
+    def upload(i):
+        lo, hi = bounds[i]
+        buf = staging[i % 2]
+        if copied[i % 2] is not None:
+            copied[i % 2].synchronize()
+        with torch.cuda.stream(side):
+            parts = []
+            for x, b in zip(frames, buf):
+                b[:hi - lo].copy_(x[lo:hi])
+                parts.append(b[:hi - lo].to(dev, non_blocking=True))
+            done = torch.cuda.Event()
+            done.record(side)
+        copied[i % 2] = done
+        return done, parts
+
+    nxt = upload(0)
+    for i, (lo, hi) in enumerate(bounds):
+        done, parts = nxt
+        compute.wait_event(done)
+        for x in parts:
+            x.record_stream(compute)
+        if i + 1 < len(bounds):
+            nxt = upload(i + 1)
+        yield lo, hi, F.Frame(*parts)
+
+
+def _concat_outputs(parts: list) -> F.FrameOutput:
+    """Chunks of host outputs (numpy (T_i, ...)) -> one FrameOutput."""
+    def cat(vals):
+        return None if vals[0] is None else np.concatenate(vals)
+
+    def rec(kind, of):
+        return kind(*(cat([getattr(of(p), k) for p in parts]) for k in kind._fields))
+
+    rest = {k: cat([getattr(p, k) for p in parts])
+            for k in F.FrameOutput._fields if k not in ("nodes", "edges")}
+    return F.FrameOutput(nodes=rec(F.NodeRecord, lambda p: p.nodes),
+                         edges=rec(F.EdgeRecord, lambda p: p.edges), **rest)
+
+
 def run_odometry(
     cfg: SlamConfig,
     frames: F.Frame,
@@ -154,9 +228,16 @@ def run_odometry(
     initial_pose=None,
     device=None,
     on_frame=None,
+    chunk: int = 0,
 ) -> OdometryResult:
     """Phase A over a full sequence, on ``device`` (CUDA unless
-    ``device="cpu"``).  Frames on another device are moved there once.
+    ``device="cpu"``).  Frames on another device are moved there once; with
+    ``0 < chunk < T`` they are moved one chunk at a time instead (the next
+    chunk's upload overlapping the current one on CUDA) and each chunk's
+    outputs are copied to the host at its end, so neither the frames nor
+    the outputs of the whole sequence sit on the device.  The results are
+    bitwise those of the run without chunks; ``chunk_seconds`` holds each
+    chunk's wall seconds.
 
     ``on_frame(t, carry)``, if given, is called on the host before frame
     ``t`` is stepped, with the carry that enters it (for progress, timing or
@@ -168,23 +249,57 @@ def run_odometry(
         s2b = torch.zeros(3, dtype=dtype, device=dev)
     else:
         s2b = torch.as_tensor(np.asarray(sensor_to_base, np.float32)).to(dev)
-    if frames.stamp.device != dev:
+    T = int(frames.stamp.shape[0])
+    chunked = 0 < chunk < T
+    if frames.stamp.device != dev and not chunked:
         frames = F.Frame(*(x.to(dev) for x in frames))
     carry = F.init_carry(cfg, initial_pose=initial_pose, device=dev)
-    T = int(frames.stamp.shape[0])
 
-    outs = []
-    for t in range(T):
-        if on_frame is not None:
-            on_frame(t, carry)
-        fr = F.Frame(*(x[t] for x in frames))
-        carry, out = F.frontend_step(cfg, carry, fr, s2b)
-        outs.append(out)
-    carry = F.flush_submap(cfg, carry)
+    def steps(part, lo, hi):
+        nonlocal carry
+        outs = []
+        for t in range(lo, hi):
+            if on_frame is not None:
+                on_frame(t, carry)
+            fr = F.Frame(*(x[t - lo] for x in part))
+            carry, out = F.frontend_step(cfg, carry, fr, s2b)
+            outs.append(out)
+        return outs
 
-    host = stack_outputs(outs)
-    tables = _unstack_outputs(host)
-    node_desc = host.sc_desc[tables["node_frame"]].astype(np.float32)
+    chunk_seconds = []
+    if chunked:
+        # A node leaves the front end some frames after its source frame,
+        # which may lie in an earlier chunk: the float32 descriptor rows of
+        # the frames within that horizon are kept across chunks.
+        keep = F.node_source_horizon(cfg)
+        rows, node_rows, parts = {}, {}, []
+        t_c = time.perf_counter()
+        for lo, hi, part in _chunk_uploads(frames, chunk, dev):
+            host = stack_outputs(steps(part, lo, hi))  # one copy per chunk
+            rows.update((lo + i, d) for i, d in enumerate(host.sc_desc))
+            for f in host.nodes.frame_idx[host.nodes.valid.astype(bool)]:
+                if int(f) not in rows:
+                    raise RuntimeError(f"node source frame {int(f)} is older than the "
+                                       f"{keep}-frame descriptor window at frame {hi}")
+                node_rows[int(f)] = rows[int(f)].copy()
+            for k in [k for k in rows if k < hi - keep]:
+                del rows[k]
+            parts.append(host._replace(sc_desc=None))
+            now = time.perf_counter()
+            chunk_seconds.append(now - t_c)
+            t_c = now
+        carry = F.flush_submap(cfg, carry)
+        host = _concat_outputs(parts)
+        tables = _unstack_outputs(host)
+        # frame 0 always emits a node (the first submap's root)
+        node_desc = np.stack([node_rows[int(f)] for f in tables["node_frame"]])
+    else:
+        outs = steps(frames, 0, T)
+        carry = F.flush_submap(cfg, carry)
+        host = stack_outputs(outs)
+        tables = _unstack_outputs(host)
+        node_desc = host.sc_desc[tables["node_frame"]].astype(np.float32)
+
     return OdometryResult(
         odom_poses=host.odom_pose,
         node_id=tables["node_id"],
@@ -212,6 +327,7 @@ def run_odometry(
             "submap_store_full": bool(host.store_saturated.any()),
         },
         node_desc=node_desc,
+        chunk_seconds=np.asarray(chunk_seconds, np.float64),
     )
 
 
@@ -251,13 +367,16 @@ def build_pose_graph(odo: OdometryResult, loops, device):
 
 
 def run_slam(cfg: SlamConfig, frames: F.Frame, sensor_to_base=None,
-             initial_pose=None, device=None) -> SlamResult:
+             initial_pose=None, device=None, chunk: int = 0) -> SlamResult:
     """Full offline SLAM on ``device`` (CUDA unless ``device="cpu"``):
     odometry, batched loop closure (ScanContext, or position association
     with ``use_scan_context_as_loop_closure`` off), one final pose-graph
     solve and the submap re-anchoring (``ndt_slam.cpp:94-209`` offline
     semantics: loop search per frame, the pose graph once at the end).
-    ``timings`` holds the wall seconds of each phase."""
+    ``timings`` holds the wall seconds of each phase.  ``chunk`` goes to
+    :func:`run_odometry`; the loop pass moves each candidate frame it
+    rebuilds to the device on its own, so host-resident frames stay where
+    they are."""
     from ..graph import pose_graph as PG
     from ..graph import schur
     from ..loops import detector
@@ -266,7 +385,7 @@ def run_slam(cfg: SlamConfig, frames: F.Frame, sensor_to_base=None,
     timings = {}
     t0 = time.perf_counter()
     odo = run_odometry(cfg, frames, sensor_to_base=sensor_to_base,
-                       initial_pose=initial_pose, device=dev)
+                       initial_pose=initial_pose, device=dev, chunk=chunk)
     timings["odometry_s"] = round(time.perf_counter() - t0, 3)
 
     t0 = time.perf_counter()
@@ -311,14 +430,16 @@ def ogm_max_steps(cfg: SlamConfig) -> int:
 
 @torch.profiler.record_function("randt.ogm")
 def render_ogm(cfg: SlamConfig, result: SlamResult, frames: F.Frame,
-               sensor_to_base=None, device=None):
+               sensor_to_base=None, device=None, chunk: int = 32):
     """Occupancy-grid post-pass (``raytrace`` + ``visualizeMap`` timers,
     ``ndt_slam.cpp:366-368,308-348``) on ``device`` (CUDA unless
     ``device="cpu"``): re-extract every keyframe node's max-intensity beams
-    (one ``preprocess.filter_scan``, so one K1 launch, per node), raytrace
-    them into per-submap counting grids at the odometry-time sensor poses,
-    fuse the grids into the global OGM at the optimized submap origins, and
-    apply the smoothstep occupancy mapping.
+    (the node frames gathered ``chunk`` at a time, from the host or the
+    device where ``frames`` lie, the last chunk padded with its final
+    frame, and one batched ``preprocess.filter_scan``, so one K1 launch, per
+    chunk), raytrace them into per-submap counting grids at the
+    odometry-time sensor poses, fuse the grids into the global OGM at the
+    optimized submap origins, and apply the smoothstep occupancy mapping.
 
     Returns (global occupancy (gh, gw) float32, counting grids (NS, sh, sw)
     int32) as numpy.  The JAX package counts on the host through its native
@@ -339,18 +460,23 @@ def render_ogm(cfg: SlamConfig, result: SlamResult, frames: F.Frame,
     sh, sw = o.submap_size_y, o.submap_size_x
     n_sub = odo.n_submaps
 
+    node_frames = np.asarray(odo.node_frame, np.int64)
+    n_nodes = len(node_frames)
     beams, masks = [], []
-    for f in np.asarray(odo.node_frame, np.int64):
+    for lo in range(0, n_nodes, chunk):
+        idx = node_frames[lo:lo + chunk]
+        idx = np.concatenate([idx, np.full(chunk - len(idx), idx[-1])])
+        at = torch.from_numpy(idx).to(frames.stamp.device)
         scan = pp.PolarScan(
-            intensity=frames.intensity[f].to(dev).to(dtype),
-            azimuths=frames.azimuths[f].to(dev), ranges=frames.ranges[f].to(dev),
-            azimuth_mask=frames.azimuth_mask[f].to(dev))
+            intensity=frames.intensity[at].to(dev).to(dtype),
+            azimuths=frames.azimuths[at].to(dev), ranges=frames.ranges[at].to(dev),
+            azimuth_mask=frames.azimuth_mask[at].to(dev))
         filt = pp.filter_scan(scan, cfg.preprocessor, s2b)
         beams.append(filt.beams)
         masks.append(filt.beam_mask)
-    beams = torch.stack(beams) if beams else torch.zeros(0, 1, 3, device=dev)
-    masks = torch.stack(masks) if masks else torch.zeros(0, 1, dtype=torch.bool,
-                                                          device=dev)
+    beams = torch.cat(beams)[:n_nodes] if beams else torch.zeros(0, 1, 3, device=dev)
+    masks = torch.cat(masks)[:n_nodes] if masks else torch.zeros(
+        0, 1, dtype=torch.bool, device=dev)
 
     # sensor poses in each node's submap frame (odometry-time geometry)
     def put(x):

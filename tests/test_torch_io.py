@@ -13,8 +13,11 @@ equality between the two packages on the same inputs:
 * ``rosbag``: bags written by each package and read by the other (both
   chunk compressions) give the same messages, and ``convert_bag`` the same
   ``.npz`` arrays (the port rasterizes with the numpy version of the JAX
-  package's native ``pack_polar_image``; seeded points lie on no rounding
-  tie, where the two could part);
+  package's native ``pack_polar_image``), and the rasterizer alone against
+  the native library on rounding ties and NaN intensities (it can still
+  part from it where the C library's ``atan2f``, within an ulp of the
+  rounded float64 ``arctan2``, puts a point that lies within an ulp of a
+  row boundary across it; no point of these cases does);
 * a hypothesis fuzz of corrupted bags (bytes replaced, cut, inserted): both
   readers raise the same exception type with the same message, or return
   the same messages and parsed clouds;
@@ -328,10 +331,13 @@ def test_png_directory_converters_equal(tmp_path):
 
 
 def test_pack_polar_image_is_the_jax_packages():
-    """The port's numpy rasterizer against the JAX package's native helper
-    (or its numpy fallback where the library did not build)."""
+    """The port's numpy rasterizer against the JAX package's native helper:
+    a seeded cloud, rounding ties and NaN or non-positive intensities (the
+    JAX package's numpy fallback rounds ties half to even and lets a NaN
+    poison its bin, so the library must have built)."""
     from randt_slam_tpu.io import native
 
+    assert native.have_native(), "the JAX package's native library did not build"
     rng = np.random.default_rng(4)
     pts = np.concatenate([_cloud(rng, n=500, rmax=40.0),
                           [[100.0, 0.0, 50.0]]]).astype(np.float32)
@@ -342,3 +348,25 @@ def test_pack_polar_image_is_the_jax_packages():
     raw = tRB.serialize_pointcloud2(pts, 3.5)
     assert raw == jRB.serialize_pointcloud2(pts, 3.5)
     _equal(tuple(tRB.parse_pointcloud2(raw)), tuple(jRB.parse_pointcloud2(raw)))
+
+    def both(pts, a0, A, R=4, bw=1.0):
+        pts = np.asarray(pts, np.float32)
+        args = (a0, 2 * np.pi / A, A, 0.0, bw, R)
+        return tRB.pack_polar_image(pts, *args), native.pack_polar_image(pts, *args)
+
+    # the point (1, 1) lies half a step between rows 0 and 1: lround takes 1
+    mine, ref = both([[1.0, 1.0, 7.0]], 0.0, 4)
+    _equal(mine, ref)
+    assert mine[1, 1] == 7.0 and mine[0].max() == 0.0
+    # a NaN and a 20.0 in one bin give 20.0; a negative and a zero leave 0
+    mine, ref = both([[2.5, 0.0, np.nan], [2.5, 0.0, 20.0], [0.0, 1.5, -3.0],
+                      [0.0, -1.5, 0.0], [-1.5, 0.0, np.nan]], 0.0, 4)
+    _equal(mine, ref)
+    assert mine[0, 2] == 20.0 and not np.isnan(mine).any()
+    # every half-step direction, on each side of the wrap, at three origins
+    for A in (4, 8, 400):
+        ang = (np.arange(2 * A) + 0.5) * np.pi / A
+        pts = np.stack([3.0 * np.cos(ang), 3.0 * np.sin(ang),
+                        np.arange(1, 2 * A + 1)], axis=1)
+        for a0 in (0.0, -np.pi, np.pi / 3):
+            _equal(*both(pts, a0, A))

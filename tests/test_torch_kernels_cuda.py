@@ -51,12 +51,17 @@ PyTorch is installed:
   1e-5 of the pose's size of the CPU's solve (the CPU tests' tolerance
   against the JAX package: float order only), two card runs bitwise equal.
 * ``render_ogm`` on the card from a short card odometry run: K1 once per
-  keyframe node and no other kernel; counting grids bitwise equal to the
+  chunk of 32 keyframe nodes and no other kernel; counting grids bitwise equal to the
   CPU's from the same tables, the occupancy within 1e-5; two card runs
   bitwise equal.
 * ``OnlineSlam`` on the card: the CPU's tables, poses within 1e-2 m /
   1e-3 rad of the CPU's; resumed from its own checkpoint, bitwise the
   uninterrupted run.
+* The long-sequence path: host-resident frames through chunked odometry
+  bitwise the device-resident run (float32 and uint8 frames, both switch
+  settings); ``render_ogm`` in chunks bitwise one node per launch; the
+  online grids of finished submaps in host memory, none re-uploaded, the
+  grids and occupancy bitwise those of the run that keeps them on the card.
 * The batch axis of ``parallel/batch``: K1, K2 and K3a/K3b with B in
   {1, 3} (members with different range rows, segment populations,
   valid-pair counts, mu and NDT scale) against their batched plain
@@ -629,7 +634,8 @@ def test_render_ogm_card_against_cpu(dev):
     build.reset_launches()
     occ, grids = slam.render_ogm(cfg, res, frames, device=dev)
     launches = dict(build.LAUNCHES)
-    assert launches == {k: (len(odo.node_id) if k == "row_windows" else 0)
+    # one batched K1 per chunk of 32 node frames
+    assert launches == {k: (-(-len(odo.node_id) // 32) if k == "row_windows" else 0)
                         for k in launches}
     occ2, grids2 = slam.render_ogm(cfg, res, frames, device=dev)
     occ_c, grids_c = slam.render_ogm(cfg, res, frames, device="cpu")
@@ -725,9 +731,84 @@ def test_online_card_against_cpu_and_resume(dev, tmp_path):
     assert tables(again) == tables(card)
     for a, b in zip(again.edges, card.edges):
         assert np.array_equal(a[2], b[2]) and np.array_equal(a[3], b[3])
-    assert again._count_grids.keys() == card._count_grids.keys()
-    for k, g in card._count_grids.items():
-        assert torch.equal(again._count_grids[k], g)
+    grids, grids_again = card.count_grids(), again.count_grids()
+    assert grids_again.keys() == grids.keys()
+    for k, g in grids.items():
+        assert np.array_equal(grids_again[k], g)
+
+
+@pytest.mark.cuda
+def test_long_sequence_path_on_the_card(dev):
+    """The long-sequence path on the card: host-resident frames through
+    ``run_odometry(chunk=8)`` (the chunks 8, 8 and 4; some nodes leave the
+    keyframe queue in the chunk after their source frame's) bitwise the
+    device-resident run, float32 and uint8 frames, switches off and on;
+    ``render_ogm`` with chunks of 32 and 5 node frames bitwise one node per
+    launch, one K1 launch per chunk; ``OnlineSlam`` with the online OGM
+    keeps on the card only the grids of submaps that can still receive
+    nodes, re-uploads none, and gives the grids and occupancy of the same
+    run with the move taken out, bit for bit."""
+    from randt_slam_torch.config import synthetic_config
+    from randt_slam_torch.io import synthetic
+    from randt_slam_torch.pipeline import frontend as F
+    from randt_slam_torch.pipeline import slam
+    from randt_slam_torch.pipeline.online import OnlineSlam
+
+    seq = synthetic.generate(seed=3, n_frames=20, n_azimuths=256, n_bins=256)
+    fields = ("odom_poses", "node_id", "node_frame", "node_submap", "node_is_root",
+              "node_pose", "edge_begin", "edge_end", "edge_trans", "node_desc")
+    for switches in SWITCHES:
+        cfg = synthetic_config(**SWITCHES[switches])
+        for img in (seq.intensity, np.clip(seq.intensity, 0, 255).astype(np.uint8)):
+            arrays = (img, seq.azimuths, seq.ranges, seq.stamps)
+            ref = slam.run_odometry(cfg, slam.frames_from_arrays(*arrays, device=dev),
+                                    device=dev)
+            res = slam.run_odometry(cfg, slam.frames_from_arrays(*arrays, host=True),
+                                    device=dev, chunk=8)
+            for k in fields:
+                assert np.array_equal(getattr(res, k), getattr(ref, k)), (switches, k)
+            assert len(res.chunk_seconds) == 3
+
+    host = slam.frames_from_arrays(seq.intensity, seq.azimuths, seq.ranges, seq.stamps,
+                                   host=True)
+    res = slam.SlamResult(odometry=ref, loops=None, node_pose_optimized=ref.node_pose,
+                          node_stamp=ref.node_stamp, node_frame=ref.node_frame,
+                          submap_origin_optimized=ref.submap_origin, pgo_cost=0.0,
+                          pgo_iterations=0)
+    one = slam.render_ogm(cfg, res, host, device=dev, chunk=1)
+    for chunk in (32, 5):
+        build.reset_launches()
+        occ, grids = slam.render_ogm(cfg, res, host, device=dev, chunk=chunk)
+        assert build.LAUNCHES["row_windows"] == -(-len(ref.node_id) // chunk)
+        assert np.array_equal(grids, one[1]) and np.array_equal(occ, one[0])
+
+    ocfg = dataclasses.replace(tiny_config(), visualize_ogm=True)
+    small = synthetic.generate(seed=5, n_frames=20, n_azimuths=64, n_bins=128,
+                               max_range=40.0, speed=3.0, dt=0.25, n_walls=40)
+    frames = slam.frames_from_arrays(small.intensity, small.azimuths, small.ranges,
+                                     small.stamps, device=dev)
+
+    def online():
+        eng = OnlineSlam(ocfg, loop_every=3, pgo_every=7, device=dev)
+        for t in range(20):
+            eng.process_frame(F.Frame(*(x[t] for x in frames)))
+        return eng
+
+    moved = online()
+    retire = OnlineSlam._retire_grids
+    OnlineSlam._retire_grids = lambda self: None
+    try:
+        kept = online()
+    finally:
+        OnlineSlam._retire_grids = retire
+    place = moved.grid_placement()
+    print(f"online grids on the card and the host: {place}")
+    assert place["host"] >= 2 and place["reuploads"] == 0
+    assert all(isinstance(g, np.ndarray) == (s < moved.carry.n_finished)
+               for s, g in moved._count_grids.items())
+    a, b = moved.count_grids(), kept.count_grids()
+    assert a.keys() == b.keys() and all(np.array_equal(a[s], b[s]) for s in a)
+    assert np.array_equal(moved.render_ogm(), kept.render_ogm())
 
 
 # ---- the batch axis (parallel/batch: B sequences in one launch) -------------

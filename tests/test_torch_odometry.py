@@ -222,3 +222,55 @@ def test_reference_sensitivity(seq, jax_result):
     moved = jS.run_odometry(j_cfg(), frames, use_scan=True)
     d = np.abs(moved.odom_poses - jax_result.odom_poses)[:, :2].max()
     assert d > 1e-2, d
+
+
+def test_reference_own_kernels_depart_from_its_cpu_path(seq, jax_result, monkeypatch):
+    """The JAX package's own kernel switches on, run on the CPU: its matcher
+    honours them only where the backend is a TPU, so inside this test its
+    backend check sees one, and its K3a/K3b/K4 run in interpret mode.  The
+    tables equal its switches-off run's; the poses depart from it by more
+    than the 1e-2 m band on a few frames (4.0e-2 m at frame 17 of this
+    sequence), as the port's switches-on run departs from that CPU path:
+    the departure is the reference's own response to its kernels' last
+    float32 bits."""
+    import types
+
+    from randt_slam_tpu.ops import ndt_linearize as jNL
+    from randt_slam_tpu.ops import small_chol as jSC
+    from randt_slam_tpu.registration import matcher as jM
+
+    class TpuBackend(types.ModuleType):
+        def __getattr__(self, name):
+            return getattr(jax, name)
+
+    on_tpu = TpuBackend("jax")
+    on_tpu.default_backend = lambda: "tpu"
+    traced = []
+
+    def interpreted(fn):
+        def run(*a, **k):
+            traced.append(fn.__name__)
+            return fn(*a, interpret=True, **k)
+        return run
+
+    monkeypatch.setattr(jM, "jax", on_tpu)
+    for mod, name in ((jNL, "linearize"), (jNL, "robust_cost"), (jSC, "chol_solve")):
+        monkeypatch.setattr(mod, name, interpreted(getattr(mod, name)))
+    monkeypatch.setattr(jS, "_SCAN_CACHE", {})
+    jax.clear_caches()  # no trace made without the switches may be reused
+    try:
+        frames = jS.frames_from_arrays(seq.intensity, seq.azimuths, seq.ranges,
+                                       seq.stamps)
+        on = jS.run_odometry(j_cfg(**SWITCHES["on"]), frames, use_scan=True)
+    finally:
+        jax.clear_caches()  # nor a trace made with them, after the patches
+    assert {"linearize", "robust_cost", "chol_solve"} <= set(traced), traced
+    for k in TABLES:
+        np.testing.assert_array_equal(getattr(on, k), getattr(jax_result, k), err_msg=k)
+    d = np.abs(on.odom_poses - jax_result.odom_poses)
+    pos = d[:, :2].max(axis=1)
+    print("JAX switches on against off, per-frame position departure (m):",
+          np.array2string(pos, precision=6, max_line_width=200),
+          f"heading max {d[:, 2].max():.3e} rad")
+    assert np.all(np.isfinite(on.odom_poses))
+    assert pos.max() > 1e-2, pos.max()

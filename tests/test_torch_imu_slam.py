@@ -1,0 +1,212 @@
+"""Full offline SLAM at ``indoor_config()`` (the IMU on): the port on the CPU
+against the JAX package on a short indoor loop.
+
+The drive is ``chip_smoke.render_indoor``'s (400 azimuths x 400 bins of 3
+cm, 0.25 s frames at 0.8 m/s through a wall-dense world, a gyro drifting at
+0.02 rad/s), cut to fit the CPU tests' time: a circular lap of 48 frames
+(9.6 m, a radius of 1.53 m, 0.13 rad a frame) driven for 64 frames, and
+ScanContext's ``num_exclude_recent`` cut from 50 to 10 nodes so that the
+revisits of the second lap are candidates (the 50 of the shipped preset
+needs a lap of ~107 frames; ``chip_smoke.py`` phase 13 drives that on the
+card).  Everything else is ``indoor_config()``'s own, the reference's
+``weight_imu_bias`` included.
+
+What must hold, and why:
+
+* the free-running runs of both packages (odometry, loop closure, pose
+  graph): node, edge and submap tables identical; the accepted loop edges
+  and every query's stage (no candidate, own submap, gated out, accepted)
+  identical; ``test_torch_odometry.py``'s switches-off free-running bands
+  on the odometry (ATE within 5e-3 m, headings within 1e-3 rad, at most
+  four frames over 1e-2 m and none over 5e-2 m); the post-PGO node ATE
+  within 1 cm of the JAX package's (``test_torch_slam.py``).  Not the 1.05
+  x rule against the odometry: on this drive the odometry's node ATE is
+  2.2 cm and both packages' pose graphs end 1.05 x above it (the JAX
+  package 1.051 x, measured), a loop pass with nothing left to correct;
+* the ScanContext match of a query that a gate rejects may differ: its
+  score adds an odometry-consistency term, and free-running positions
+  millimetres apart tip near-ties (measured: 1 of 25 queries here);
+* so the loop pass is also held from identical odometry (the JAX package's
+  result carried across, as ``test_torch_loops.py`` does), on this drive
+  and on ``chip_smoke.py`` phase 13's drive at the shipped
+  ``num_exclude_recent`` of 50 (136 frames, laps of 112, phase 13's seed
+  and ``weight_imu_bias``; its odometry from the JAX package alone, one
+  JAX run): the candidate table (every query's match and stage) identical,
+  the same edges, their refined poses within that test's
+  one-ulp-decided-step band (5e-3 m, 1e-4 rad);
+* the CS gate at the JAX package's refined poses: the port's within
+  ``CS64_REL`` of the JAX package's own gate function (``cs_divergence``
+  with its ``self_term`` and ``transform_mean_cov``) on the same inputs,
+  the port's cells.  Against the JAX package's detector output the
+  divergences agree within ``test_torch_loops.py``'s 2e-3 relative; on
+  phase 13's drive, that or else the reference's gate moves by at least
+  half as much between its candidate cells and the port's: there the two
+  packages' candidate cells differ by float32 rounding (means 1.9e-6 m,
+  covariances 4.9e-4), one candidate's self term moves 2 % under it in
+  either package's function, and its divergence 4.5e-3 relative
+  (measured: 2.2680 from the reference's cells, 2.2579 from the port's).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import BIAS_WEIGHT, IN_SEED, render_indoor
+from randt_slam_tpu.config import indoor_config as j_indoor
+from randt_slam_tpu.io import formats
+from randt_slam_tpu.loops import detector as jdet
+from randt_slam_tpu.pipeline import slam as jS
+from randt_slam_torch import state
+from randt_slam_torch.config import indoor_config as t_indoor
+from randt_slam_torch.loops import detector as tdet
+from randt_slam_torch.pipeline import slam as tS
+from randt_slam_tpu.ndt import divergence as jD
+from randt_slam_tpu.registration import matcher as jMa
+from tests.test_torch_loops import (CS64_REL, CS_REL, STEP_ANG, STEP_LIN,  # noqa: F401
+                                    one_thread)
+
+N_FRAMES, LAP, SEED = 64, 48, 3
+ROUND = (0.0, 0.0)      # straights of length 0: a circle
+OVERRIDES = {"scan_context.num_exclude_recent": 10}
+TABLES = ("node_id", "node_frame", "node_submap", "node_is_root",
+          "edge_begin", "edge_end")
+FREE_ATE, FREE_ANG, FREE_POS, MAX_OVER, FREE_CAP = 5e-3, 1e-3, 1e-2, 4, 5e-2
+ATE_GAP = 1e-2
+
+
+@pytest.fixture(scope="module")
+def runs():
+    scans, az, ranges, stamps, imu, gt = render_indoor(N_FRAMES, LAP, SEED, ROUND)
+    jframes = jS.frames_from_arrays(scans, az, ranges, stamps, imu_yaw=imu)
+    jres = jS.run_slam(j_indoor(**OVERRIDES), jframes)
+    tframes = tS.frames_from_arrays(scans, az, ranges, stamps, imu_yaw=imu,
+                                    device="cpu")
+    tres = tS.run_slam(t_indoor(**OVERRIDES), tframes, device="cpu")
+    return dict(gt=gt, j=jres, t=tres, jframes=jframes, tframes=tframes)
+
+
+def test_indoor_config_turns_the_imu_on():
+    cfg = t_indoor()
+    assert cfg.use_imu and cfg.matcher.use_imu
+
+
+def test_tables_identical(runs):
+    jo, to = runs["j"].odometry, runs["t"].odometry
+    for k in TABLES:
+        np.testing.assert_array_equal(getattr(to, k), np.asarray(getattr(jo, k)),
+                                      err_msg=k)
+    assert to.n_submaps == jo.n_submaps >= 3
+    np.testing.assert_array_equal(to.submap_root, np.asarray(jo.submap_root))
+    jl, tl = runs["j"].loops, runs["t"].loops
+    assert jl.n_accepted > 0
+    np.testing.assert_array_equal(tl.edge_begin, np.asarray(jl.edge_begin))
+    np.testing.assert_array_equal(tl.edge_end, np.asarray(jl.edge_end))
+    np.testing.assert_array_equal(tl.query_node, np.asarray(jl.query_node))
+    np.testing.assert_array_equal(tl.query_stage, np.asarray(jl.query_stage))
+    # a differing match only where a gate rejected the query
+    differ = tl.query_match != np.asarray(jl.query_match)
+    assert np.all(tl.query_stage[differ] == 2), tl.query_stage[differ]
+
+
+def test_free_running_bands(runs):
+    gt = runs["gt"]
+    jo, to = runs["j"].odometry, runs["t"].odometry
+    j_poses = np.asarray(jo.odom_poses)
+    ate_t, ate_j = formats.ate(to.odom_poses, gt), formats.ate(j_poses, gt)
+    assert abs(ate_t - ate_j) < FREE_ATE, (ate_t, ate_j)
+    d = np.abs(to.odom_poses - j_poses)
+    assert d[:, 2].max() <= FREE_ANG, d[:, 2].max()
+    pos = d[:, :2].max(axis=1)
+    assert int((pos > FREE_POS).sum()) <= MAX_OVER and pos.max() <= FREE_CAP, pos.max()
+
+
+def test_pose_graph_against_odometry_and_reference(runs):
+    gt = runs["gt"]
+    t, j = runs["t"], runs["j"]
+    node_gt = gt[t.odometry.node_frame]
+    before = formats.ate(t.odometry.node_pose, node_gt)
+    after = formats.ate(t.node_pose_optimized, node_gt)
+    j_after = formats.ate(np.asarray(j.node_pose_optimized), node_gt)
+    j_before = formats.ate(np.asarray(j.odometry.node_pose), node_gt)
+    print(f"node ATE: port {before:.5f} -> {after:.5f} m, JAX package "
+          f"{j_before:.5f} -> {j_after:.5f} m")
+    assert np.all(np.isfinite(t.node_pose_optimized))
+    assert abs(after - j_after) <= ATE_GAP, (after, j_after)
+    assert abs(before - j_before) <= FREE_ATE, (before, j_before)
+
+
+def test_loop_pass_from_the_jax_odometry(runs):
+    cs, det, _ = _hold_loop_pass(j_indoor(**OVERRIDES), t_indoor(**OVERRIDES),
+                                 runs["j"].odometry, runs["jframes"], runs["tframes"])
+    np.testing.assert_allclose(cs, det, rtol=CS_REL)
+
+
+@pytest.fixture(scope="module")
+def phase13_drive():
+    scans, az, ranges, stamps, imu, _ = render_indoor(seed=IN_SEED)
+    jframes = jS.frames_from_arrays(scans, az, ranges, stamps, imu_yaw=imu)
+    return dict(jodo=jS.run_odometry(j_indoor(**BIAS_WEIGHT), jframes), jframes=jframes,
+                tframes=tS.frames_from_arrays(scans, az, ranges, stamps, imu_yaw=imu,
+                                              device="cpu"))
+
+
+def test_loop_pass_at_the_shipped_exclusion(phase13_drive):
+    assert t_indoor().scan_context.num_exclude_recent == 50
+    d = phase13_drive
+    cs, det, on_port_cells = _hold_loop_pass(j_indoor(**BIAS_WEIGHT),
+                                             t_indoor(**BIAS_WEIGHT), d["jodo"],
+                                             d["jframes"], d["tframes"])
+    gap, own = np.abs(cs - det), np.abs(on_port_cells - det)
+    assert np.all((gap <= CS_REL * det) | (own >= 0.5 * gap)), (cs, det, on_port_cells)
+
+
+def _hold_loop_pass(jcfg, tcfg, jodo, jframes, tframes):
+    """Both packages' loop pass from the JAX package's odometry ``jodo``.
+    Returns the port's CS gate at the JAX package's refined poses, the JAX
+    package's detector divergences, and its gate function on the port's
+    cells at those poses."""
+    j = jdet.detect_loops(jcfg, jodo, jframes)
+    todo = state.odometry_from_numpy(jodo, "cpu")
+    t = tdet.detect_loops(tcfg, todo, tframes, device="cpu")
+    for k in ("query_node", "query_match", "query_stage", "edge_begin", "edge_end"):
+        np.testing.assert_array_equal(getattr(t, k), np.asarray(getattr(j, k)), err_msg=k)
+    assert t.n_accepted == j.n_accepted > 0
+    assert t.n_sc_candidates == j.n_sc_candidates
+    poses = np.asarray(j.edge_trans)
+    d = np.abs(t.edge_trans - poses)
+    assert d[:, :2].max() <= STEP_LIN and d[:, 2].max() <= STEP_ANG, d
+    # the CS gate at the reference's refined poses: the port's against the
+    # JAX package's gate function on the same (the port's) inputs, and
+    # against the JAX package's detector
+    inputs = _gate_inputs(tcfg, todo, tframes, t.edge_begin, t.edge_end)
+    cs = tdet._cs_gate(torch.from_numpy(poses), *inputs).numpy()
+    on_port_cells = np.asarray(jax.vmap(_jax_gate)(
+        jnp.asarray(poses), *(jnp.asarray(x.numpy()) for x in inputs)))
+    np.testing.assert_allclose(cs, on_port_cells, rtol=CS64_REL)
+    # the divergences run over the candidates (queries with stage 2 or 3)
+    stage = np.asarray(j.query_stage)
+    return cs, np.asarray(j.cs_divergences)[stage[stage >= 2] == 3], on_port_cells
+
+
+def _jax_gate(pose, f_mean, f_cov, f_valid, m_mean, m_cov, m_valid, f_self):
+    """The JAX package's CS gate of one candidate (its detector's ``gate``)."""
+    m_self = jD.self_term(m_mean, m_cov, m_valid)
+    mm, mc = jMa.transform_mean_cov(pose, m_mean, m_cov)
+    return jD.cs_divergence(f_mean, f_cov, f_valid, mm, mc, m_valid,
+                            f_self=f_self, m_self=m_self)
+
+
+def _gate_inputs(cfg, odo, frames, begin, end):
+    """The port's CS-gate inputs of the given edges: the submaps' cells, the
+    candidates' cells and the submaps' self terms."""
+    dev = torch.device("cpu")
+    sub = np.asarray(odo.node_submap)[begin]
+    fields = tdet._store_fields(cfg, odo, dev)
+    moving = tdet._candidate_features(cfg, frames, np.asarray(odo.node_frame)[end],
+                                      None, dev)
+    by_sub = tdet._self_terms(*fields, sub)
+    s = torch.from_numpy(sub.astype(np.int64))
+    return (fields[0][s], fields[1][s], fields[2][s], *moving,
+            torch.tensor([by_sub[int(x)] for x in sub]))

@@ -1,0 +1,161 @@
+"""The sliding-window solve with the IMU on: the port's ``estimate_window``
+against the JAX package's from identical inputs.
+
+What must hold, and why:
+
+* ``estimate_window`` with the IMU on, from identical inputs (the window of
+  ``test_torch_registration.py``, built by the port), the kernel switches off and on, at the
+  reference's ``weight_imu_bias`` and at ``tests/test_imu.py``'s relaxed 50:
+  ``rejected`` and ``n_residuals`` identical; the states within that test's
+  1e-4 (m, m/s) and 1e-5 (rad, rad/s, the bias column included).
+* Two named cases, both at the relaxed weight, are exceptions
+  (``REFERENCE_MOVES``): n_exist 2, and 4 with the second map.  There the
+  solve is flat to float32 along a few directions: the two packages' damped
+  systems agree to rounding (2e-7 of the matrix's unit diagonal at the
+  first LM step), each LM step is accepted in both, the costs agree within
+  2 ulps at every step, and yet the states end 1.52e-3 m / 2.04e-5 rad and
+  2.04e-3 m / 8.77e-5 rad apart, at final costs one ulp apart.  The
+  reference moves by as much under its own rounding: with one input one
+  float32 ulp off (the fixed maps' covariances, or their means), the JAX
+  package lands 1.52e-3 m / 2.03e-5 rad and 2.04e-3 m / 8.77e-5 rad from
+  its unperturbed answer (measured).  So for these cases the test runs that
+  perturbed reference too and asks that it move by at least half the
+  port's departure; the port must then stay within
+  ``test_torch_registration.py``'s band for one ulp-decided LM step, 5e-3 m
+  / 1e-4 rad, and end within ``COST_ULPS`` float32 ulps of the reference's
+  final cost.  Every other case is held to the tight band.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from randt_slam_tpu.config import synthetic_config as j_cfg
+from randt_slam_tpu.registration import matcher as jM
+from randt_slam_torch.config import synthetic_config as t_cfg
+from randt_slam_torch.io import synthetic
+from randt_slam_torch.ndt import grid as tG
+from randt_slam_torch.pipeline import frontend as tF, slam as tS
+from randt_slam_torch.registration import matcher as tM
+from randt_slam_torch.registration import residuals as tR
+from tests.test_torch_imu import one_thread  # noqa: F401
+
+LIN_TOL, ANG_TOL = 1e-4, 1e-5       # from identical inputs
+EDGE_LIN_TOL, EDGE_ANG_TOL = 5e-3, 1e-4  # one ulp-decided LM step
+COST_ULPS = 4                       # final costs of such a step
+SWITCHES = {"off": {}, "on": {"matcher.use_pallas_linearize": True,
+                              "matcher.use_pallas_chol": True}}
+WEIGHTS = {"reference": 750000.1, "relaxed": 50.0}
+# (weight, n_exist, use_prev) -> the fixed-map input that, one float32 ulp
+# up, moves the JAX package by as much as the port departs from it
+REFERENCE_MOVES = {("relaxed", 2, False): "cov", ("relaxed", 4, True): "mean"}
+
+
+@pytest.fixture(scope="module")
+def window():
+    """``test_torch_registration.py``'s window, built by the port: scan cells
+    of frames 1..W and a submap from frame 0 (and the same submap seen from
+    a shifted origin as the second fixed map), states perturbed off the
+    ground truth, and a relative yaw reading per transition.  Both packages
+    then get these same arrays."""
+    cfg = t_cfg()
+    seq = synthetic.generate(seed=3, n_frames=6, n_azimuths=256, n_bins=256)
+    frames = tS.frames_from_arrays(seq.intensity, seq.azimuths, seq.ranges, seq.stamps,
+                                   device="cpu")
+    W = cfg.matcher.smoothing_steps
+    geom = tG.GridGeom.from_config(cfg.ndt_map)
+    scans = [tF.build_scan_cells(cfg, tF.Frame(*(x[i] for x in frames)),
+                                 torch.zeros(3))[0] for i in range(W + 1)]
+    sub = tG.scatter_sparse(geom, tG.empty_sparse(geom, cfg.capacity.max_submap_cells),
+                            scans[0].stats, scans[0].valid)
+    prev = tG.transform_sparse(geom, sub, torch.tensor([0.4, -0.3, 0.02]))
+    fields = [tG.derive_sparse_fields(m, cfg.ndt_map.min_points_per_cell,
+                                      cfg.ndt_map.cell) for m in (sub, prev)]
+    states = np.zeros((W + 1, 9), np.float32)
+    states[:, :3] = seq.gt_poses[:W + 1] + np.asarray([0.3, -0.2, 0.02], np.float32)
+    states[:, 3] = 4.0
+    return dict(
+        W=W, index=(sub.index.numpy(), prev.index.numpy()),
+        mean=np.stack([f[0].numpy() for f in fields]),
+        cov=np.stack([f[1].numpy() for f in fields]),
+        valid=np.stack([f[2].numpy() for f in fields]),
+        sw=[np.stack([getattr(sc, k).numpy() for sc in scans[1:]])
+            for k in ("mean", "cov", "valid")],
+        states=states, stamps=(np.arange(W + 1) * 0.25).astype(np.float32),
+        imu=np.asarray([0.01, -0.02, 0.015], np.float32)[:W],
+    )
+
+
+@pytest.fixture(scope="module")
+def jax_windows():
+    """The JAX package's IMU-on solves of the window, by (bias weight,
+    n_exist, use_prev)."""
+    return {}
+
+
+def _jax_window(d, ov, exist, use_prev, nudge=None):
+    """The JAX package's solve of the window, with the fixed maps' ``nudge``
+    input (``"mean"`` or ``"cov"``) one float32 ulp up."""
+    maps = {k: d[k] for k in ("mean", "cov")}
+    if nudge is not None:
+        maps[nudge] = np.nextafter(maps[nudge], np.float32(np.inf))
+    fj = jM.FixedMaps(index=tuple(jnp.asarray(i) for i in d["index"]),
+                      mean=jnp.asarray(maps["mean"]), cov=jnp.asarray(maps["cov"]),
+                      valid=jnp.asarray(d["valid"]), use=jnp.asarray([True, use_prev]))
+    return jM.estimate_window(
+        j_cfg(**ov), jnp.asarray(d["states"]), jnp.asarray(d["stamps"]),
+        jnp.asarray(exist), jnp.asarray(d["imu"]),
+        jM.ScanWindow(*(jnp.asarray(x) for x in d["sw"])), fj,
+        jnp.asarray(d["states"][-2, :3]))
+
+
+def _cost_ulps(a: float, b: float) -> float:
+    return abs(a - b) / float(np.spacing(np.float32(max(abs(a), abs(b)))))
+
+
+@pytest.mark.parametrize("weight", list(WEIGHTS))
+@pytest.mark.parametrize("switches", list(SWITCHES))
+@pytest.mark.parametrize("n_exist,use_prev", [(4, False), (2, False), (4, True)])
+def test_estimate_window_with_imu_matches_jax(window, jax_windows, n_exist, use_prev,
+                                              switches, weight):
+    d = window
+    W = d["W"]
+    ov = {"use_imu": True, "matcher.use_imu": True,
+          "matcher.weight_imu_bias": WEIGHTS[weight]}
+    exist = np.arange(W + 1) >= (W + 1 - n_exist)
+    key = (weight, n_exist, use_prev)
+    if key not in jax_windows:
+        jax_windows[key] = _jax_window(d, ov, exist, use_prev)
+    ej = jax_windows[key]
+    t = torch.from_numpy
+    ft = tM.FixedMaps(index=tuple(t(i) for i in d["index"]), mean=t(d["mean"]),
+                      cov=t(d["cov"]), valid=t(d["valid"]), use=(True, use_prev))
+    et = tM.estimate_window(t_cfg(**SWITCHES[switches], **ov), t(d["states"]),
+                            t(d["stamps"]), exist, t(d["imu"]),
+                            tM.ScanWindow(*(t(x) for x in d["sw"])), ft,
+                            t(d["states"][-2, :3]))
+    assert bool(et.rejected) == bool(ej.rejected)
+    assert int(et.n_residuals) == int(ej.n_residuals) > 0
+    states_j = np.asarray(ej.states)
+    diff = np.abs(et.states.numpy() - states_j)
+    ang = [tR.TH, tR.OM, tR.BIAS]
+    lin = [c for c in range(9) if c not in ang]
+    # the bias column is free on every existing non-anchor row
+    free = np.flatnonzero(exist)[1:]
+    if WEIGHTS[weight] < 1e3:
+        assert np.all(np.abs(states_j[free, tR.BIAS]) > 1e-3), states_j[:, tR.BIAS]
+    if key not in REFERENCE_MOVES:
+        assert diff[:, lin].max() <= LIN_TOL and diff[:, ang].max() <= ANG_TOL, diff
+    else:
+        nudge = REFERENCE_MOVES[key]
+        if (key, nudge) not in jax_windows:
+            jax_windows[key, nudge] = _jax_window(d, ov, exist, use_prev, nudge)
+        own = np.abs(np.asarray(jax_windows[key, nudge].states) - states_j)
+        for cols in (lin, ang):
+            assert own[:, cols].max() >= 0.5 * diff[:, cols].max(), (own, diff)
+        ulps = _cost_ulps(float(et.cost), float(ej.cost))
+        assert ulps <= COST_ULPS, (ulps, float(et.cost), float(ej.cost))
+        assert diff[:, lin].max() <= EDGE_LIN_TOL, diff
+        assert diff[:, ang].max() <= EDGE_ANG_TOL, diff
+    np.testing.assert_allclose(float(et.cost), float(ej.cost), rtol=1e-4)

@@ -70,6 +70,12 @@ PyTorch is installed:
   launches each kernel as one sequence does, and each member has its
   single card run's tables and poses within ``tests/test_torch_batch.py``'s
   free-running bands.
+* The indoor shapes (``indoor_config()``, the IMU on): K1 and K2 on a
+  rendered 400 x 400 frame of 3 cm bins (k = 256), bitwise and within
+  1e-5 of their scale as above; K3a/K3b on every LM iteration's pairs of an
+  IMU-on window solve (N = 1024 per slot) within 1e-4 of their scale;
+  K4 on that solve's systems, whose bias columns are free at the
+  reference's weight_imu_bias, within the bounds above.
 """
 
 import dataclasses
@@ -969,3 +975,111 @@ def test_batched_odometry_launches_once_per_batched_frame(dev, switches):
         assert d[:, :2].max() <= 0.1 and d[:, 2].max() <= 5e-3, d.max(0)
         print(f"switches {switches}, member {b}: within {d[:, :2].max():.2e} m, "
               f"{d[:, 2].max():.2e} rad of its single card run")
+
+
+# ---- the indoor shapes (indoor_config(), the IMU on) --------------------------
+
+
+@pytest.fixture(scope="module")
+def indoor_inputs():
+    """K1 and K2 inputs of a rendered indoor frame (400 x 400 bins of 3 cm,
+    k = 256 kept cells) and the K3a/K3b inputs and K4 systems of frame 10's
+    window solve in a 12-frame IMU-on run with the switches on, at the
+    reference's weight_imu_bias (the bias column free)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from chip_smoke import (CAPTURE_FRAME, SWITCHES_ON, capture_solve_inputs,
+                            frame_inputs, render_indoor)
+    from randt_slam_torch.config import indoor_config
+    from randt_slam_torch.pipeline import slam
+
+    dev = torch.device("cuda", 0)
+    cfg = indoor_config(**SWITCHES_ON)
+    scans, az, ranges, stamps, imu, _ = render_indoor(12)
+    k1, k2, _ = frame_inputs(cfg, scans[CAPTURE_FRAME], az, ranges, dev)
+    frames = slam.frames_from_arrays(scans, az, ranges, stamps, imu_yaw=imu, device=dev)
+    _, lin, chol = capture_solve_inputs(cfg, frames, dev, CAPTURE_FRAME)
+    return dict(cfg=cfg, k1=k1, k2=k2, lin=lin, chol=chol)
+
+
+@pytest.mark.cuda
+def test_row_windows_and_segment_topk_at_the_indoor_shapes(dev, indoor_inputs):
+    img, rr, starts, win = indoor_inputs["k1"]
+    assert img.shape == (400, 400 + win - 1)
+    k = K1.row_windows(img, rr, starts, win)
+    p = K1.row_windows_plain(img, rr, starts, win)
+    values, ids, num, kk = indoor_inputs["k2"]
+    assert kk == 256
+    out, topi = K2.segment_topk_moments(values, ids, num, kk)
+    again, topi2 = K2.segment_topk_moments(values, ids, num, kk)
+    plain = K2.topi_moments_plain(values, ids, topi, num)
+    scale = K2.topi_moments_plain(values.abs(), ids, topi, num)
+    _, cpu_topi = K2.segment_topk_moments(values.cpu(), ids.cpu(), num, kk)
+    torch.cuda.synchronize()
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    assert torch.equal(out, again) and torch.equal(topi, topi2)
+    assert torch.equal(topi.cpu(), cpu_topi)
+    assert bool(((out - plain).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.cuda
+def test_ndt_linearize_at_the_indoor_shapes(dev, indoor_inputs):
+    """Every LM iteration's pair packs of the captured window solve (N = 2 x
+    256 x K = 1024 pairs per slot, half the Oxford shape's): within 1e-4 of each output's scale of the plain
+    versions, the maximum within 1e-5 of itself, two launches bitwise."""
+    m = indoor_inputs["cfg"].matcher
+    sc, al = m.loss_function_scale, m.loss_function_convexity
+    for poses, mu, ns, packed in indoor_inputs["lin"]:
+        # two fixed maps x 256 scan cells x K neighbours per slot
+        assert packed[0].shape[-1] == 2 * 256 * m.n_results_nn_lookup
+        pose4 = K3.pose_inputs(poses)
+        H, g, rho = K3.linearize_cuda(pose4, mu, ns, packed, sc, al)
+        H2, g2, rho2 = K3.linearize_cuda(pose4, mu, ns, packed, sc, al)
+        Hp, gp, rhop = K3.linearize_plain(pose4, mu, ns, packed, sc, al)
+        Hs, gs, rhos = K3.sums_to_blocks(
+            K3.linearize_terms(pose4, mu, ns, packed, sc, al).abs().sum(-1))
+        c, mx = K3.robust_cost_cuda(pose4, mu, packed, sc, al)
+        cp, mp = K3.robust_cost_plain(pose4, mu, packed, sc, al)
+        cs = K3.robust_cost_terms(pose4, mu, packed, sc, al)[0].abs().sum(-1)
+        torch.cuda.synchronize()
+        assert torch.equal(H, H2) and torch.equal(g, g2) and torch.equal(rho, rho2)
+        for a, b, s in ((H, Hp, Hs), (g, gp, gs), (rho, rhop, rhos), (c, cp, cs)):
+            assert bool(((a - b).abs() <= 1e-4 * s).all()), (a - b).abs().max()
+        assert bool(((mx - mp).abs() <= 1e-5 * mp).all())
+
+
+@pytest.mark.cuda
+def test_chol_solve_on_imu_window_systems(dev, indoor_inputs):
+    """K4 on the damped, Jacobi-scaled systems of the captured IMU-on solve,
+    whose bias columns are free at weight_imu_bias 750000.1 (a bias-walk
+    curvature of 5.6e11 beside pose curvatures near 1 before the scaling):
+    within 4 P eps kappa |x| of the plain version and of a float64 solve,
+    the residual within 4 P eps |A| |x|, batch and one-by-one bitwise."""
+    from randt_slam_torch.registration import residuals as R
+
+    chol = indoor_inputs["chol"]
+    A = torch.stack([a for a, _ in chol]).contiguous()
+    b = torch.stack([x for _, x in chol]).contiguous()
+    P = A.shape[-1]
+    bias = [9 * j + R.BIAS for j in range(P // 9)]
+    # a free bias column couples to its neighbours' (the walk), a frozen one
+    # is an identity row
+    assert any(float(A[0, c].abs().sum()) > 1.0 for c in bias)
+    x = K4.chol_solve_cuda(A, b)
+    one = torch.stack([K4.chol_solve_cuda(A[i].contiguous(), b[i].contiguous())
+                       for i in range(A.shape[0])])
+    xp = K4.chol_solve_plain(A, b)
+    x64 = torch.linalg.solve(A.double(), b.double())
+    kappa = torch.linalg.cond(A.double())
+    torch.cuda.synchronize()
+    assert torch.equal(x, one)
+    eps = float(np.finfo(np.float32).eps)
+    bound = (4 * P * eps * kappa * x64.abs().amax(-1))[:, None]
+    assert bool(((x.double() - x64).abs() <= bound).all())
+    assert bool(((x - xp).double().abs() <= bound).all())
+    res = (A.double() @ x.double()[..., None])[..., 0] - b.double()
+    res_bound = (4 * P * eps * A.abs().amax((-2, -1)) * x.abs().amax(-1)).double()
+    assert bool((res.abs().amax(-1) <= res_bound).all())
+    print(f"K4 on {A.shape[0]} IMU-on window systems: kappa "
+          f"{float(kappa.min()):.3g}..{float(kappa.max()):.3g}, within "
+          f"{float(((x.double() - x64).abs() / bound).max()):.3f} of the bound")

@@ -30,6 +30,7 @@ import torch
 from .. import runtime
 from ..config import GlobalFuserConfig
 from ..geometry import normalize_angle
+from ..utils import profiling
 
 
 class PoseGraph(NamedTuple):
@@ -227,7 +228,7 @@ def lm_loop(poses, assemble, trial_cost, free_f, cfg: GlobalFuserConfig):
     return poses, {"cost": float(cost), "iterations": it}
 
 
-@torch.profiler.record_function("randt.pgo")
+@profiling.span("randt.pgo")
 def optimize(g: PoseGraph, cfg: GlobalFuserConfig, max_update_index=None,
              fixed_mask=None):
     """Gauss-Newton with LM damping over the whole graph (:func:`lm_loop`).

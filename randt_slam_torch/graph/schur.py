@@ -55,6 +55,7 @@ from .. import runtime
 from ..config import GlobalFuserConfig
 from ..geometry import normalize_angle
 from ..parallel import mesh
+from ..utils import profiling
 from . import pose_graph as PG
 
 
@@ -77,7 +78,7 @@ def _group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
-@torch.profiler.record_function("randt.pgo_distributed")
+@profiling.span("randt.pgo_distributed")
 def optimize_distributed(g: PG.PoseGraph, cfg: GlobalFuserConfig, group):
     """Gauss-Newton with LM damping (:func:`pose_graph.lm_loop`, node 0
     fixed), the assembly sharded over the group's ranks by edges:
@@ -541,7 +542,7 @@ def optimize_loop(poses, g, lay: _Layout, cfg: GlobalFuserConfig, group=None):
     return poses, cost, it
 
 
-@torch.profiler.record_function("randt.pgo_schur")
+@profiling.span("randt.pgo_schur")
 def optimize_schur(g: PG.PoseGraph, cfg: GlobalFuserConfig, node_submap,
                    node_is_root, group=None):
     """Gauss-Newton via the submap Schur complement.  Gauge: the first ROOT

@@ -43,6 +43,7 @@ from ..ndt import cells as C
 from ..ndt import divergence as D
 from ..pipeline import frontend as F
 from ..registration import matcher as M
+from ..utils import profiling
 from . import scancontext as SC
 
 
@@ -166,7 +167,7 @@ def _self_terms(u_mean, u_cov, u_valid, submaps) -> dict:
     return out
 
 
-@torch.profiler.record_function("randt.cs_gate")
+@profiling.span("randt.cs_gate")
 def _cs_gate(pose, f_mean, f_cov, f_valid, m_mean, m_cov, m_valid, f_self):
     """CS divergence of each candidate's moving cells at its refined pose
     against its submap; the moving self terms are pose-invariant."""

@@ -29,6 +29,7 @@ import torch
 
 from .. import runtime
 from ..config import ScanContextConfig
+from ..utils import profiling
 
 NO_POINT = -1000.0
 
@@ -41,7 +42,7 @@ def _remainder(x, y: float):
     return torch.where(fix, r + y, r)
 
 
-@torch.profiler.record_function("randt.descriptor")
+@profiling.span("randt.descriptor")
 def make_descriptor(polar, intensity, mask, cfg: ScanContextConfig,
                     legacy_no_point_offset: bool = True):
     """One (num_ring, num_sector) descriptor from sensor-frame returns.
@@ -151,7 +152,7 @@ class LoopCandidate(NamedTuple):
     distance: torch.Tensor   # (Q,) combined distance
 
 
-@torch.profiler.record_function("randt.loop_retrieval")
+@profiling.span("randt.loop_retrieval")
 def detect(query_idx, descriptors, ring_keys, positions, distances, n_valid: int,
            cfg: ScanContextConfig) -> LoopCandidate:
     """detectLoopClosureID (:256-341) for a batch of queries (Q,) against the

@@ -22,6 +22,7 @@ import torch
 
 from .. import runtime
 from ..geometry import rotmat
+from ..utils import profiling
 
 
 class CellStats(NamedTuple):
@@ -67,7 +68,7 @@ def from_points(points, mask, segment_ids, num_segments,
     return _unpack(segment_moments(chans, segment_ids, num_segments))
 
 
-@torch.profiler.record_function("randt.scan_ndt")
+@profiling.span("randt.scan_ndt")
 def from_points_compact(points, mask, segment_ids, num_segments, k,
                         polar=None, beam_cov=None):
     """:func:`from_points` + :func:`compact` fused: moments only for the ``k``

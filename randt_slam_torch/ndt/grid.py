@@ -33,6 +33,7 @@ import torch
 
 from .. import runtime
 from ..config import MapConfig
+from ..utils import profiling
 from . import cells as C
 from .cells import CellStats
 
@@ -96,7 +97,7 @@ def _flat(idx, per_member: int):
     return idx + shift.reshape((-1,) + (1,) * (idx.dim() - 1))
 
 
-@torch.profiler.record_function("randt.submap_merge")
+@profiling.span("randt.submap_merge")
 def scatter_sparse(geom: GridGeom, sg: SparseGrid, new: CellStats, valid) -> SparseGrid:
     """Merge a batch of cells into the sparse grid, keyed by cell mean.
 
@@ -199,7 +200,7 @@ class NeighborSet(NamedTuple):
     valid: torch.Tensor  # (..., k) bool
 
 
-@torch.profiler.record_function("randt.association")
+@profiling.span("randt.association")
 def window_neighbors_sparse(
     geom: GridGeom,
     index,        # (H, W) int32 index grid
@@ -313,7 +314,7 @@ def smallest_k(dist, k: int):
     return idx[..., :k], val[..., :k]
 
 
-@torch.profiler.record_function("randt.allpairs_neighbors")
+@profiling.span("randt.allpairs_neighbors")
 def allpairs_neighbors(f_mean, f_cov, f_valid, q_mean, q_cov, q_valid, k: int,
                        linf_cutoff: float,
                        use_distribution_metric: bool = True) -> NeighborSet:

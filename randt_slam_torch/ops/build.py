@@ -7,8 +7,11 @@ The build happens at first use; the sources are compiled in parallel, one
 ``nvcc`` process per file.  There is no fallback: a missing ``nvcc`` or a
 failed compile raises.
 
-``LAUNCHES`` counts the launches of each kernel; every wrapper adds one where
-it launches its kernel and nowhere else.
+Every wrapper counts one launch of its kernel, where it launches it and
+nowhere else, as the registry's host counter ``kernel.<name>``
+(``utils/profiling``); ``LAUNCHES`` is a view of those counters by kernel
+name.  They count host dispatches: under a CUDA graph they would count
+captures, not replays.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from ..utils import profiling
+
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
@@ -29,8 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = ("window_slice", "segment_moments", "segment_sum", "ndt_linearize",
            "small_chol")
 
-LAUNCHES = {"row_windows": 0, "segment_topk_moments": 0, "segment_moments": 0,
-            "ndt_linearize": 0, "ndt_robust_cost": 0, "chol_solve": 0}
+LAUNCHES = profiling.CounterView("kernel.", profiling.KERNELS)
 
 _LIBS: dict = {}
 

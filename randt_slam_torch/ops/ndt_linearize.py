@@ -44,6 +44,7 @@ import math
 import torch
 
 from ..registration import barron
+from ..utils import profiling
 from . import build
 
 SYM6 = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
@@ -286,7 +287,7 @@ def linearize_cuda(pose4, mu, ndt_scale, packed, scale: float, alpha: float,
         *_barron_args(scale, alpha, eps), stream)
     if err != 0:
         raise RuntimeError(f"ndt_linearize kernel launch failed: CUDA error {err}")
-    build.LAUNCHES["ndt_linearize"] += 1
+    profiling.count("kernel.ndt_linearize")
     return H, g, rho
 
 
@@ -304,7 +305,7 @@ def robust_cost_cuda(pose4, mu, packed, scale: float, alpha: float,
         *_barron_args(scale, alpha, eps), stream)
     if err != 0:
         raise RuntimeError(f"ndt_robust_cost kernel launch failed: CUDA error {err}")
-    build.LAUNCHES["ndt_robust_cost"] += 1
+    profiling.count("kernel.ndt_robust_cost")
     return rho, r2max
 
 

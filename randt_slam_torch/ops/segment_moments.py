@@ -35,6 +35,7 @@ import math
 import torch
 
 from .. import runtime
+from ..utils import profiling
 from . import build
 
 MAX_CHANNELS = 16
@@ -111,7 +112,7 @@ def topi_moments_cuda(values, ids, topi):
                  out.data_ptr(), B, P, CH, k, stream)
     if err != 0:
         raise RuntimeError(f"segment_topk_moments kernel launch failed: CUDA error {err}")
-    build.LAUNCHES["segment_topk_moments"] += 1
+    profiling.count("kernel.segment_topk_moments")
     return out
 
 
@@ -183,7 +184,7 @@ def segment_moments_cuda(values, ids, num_segments: int):
                              P, num_segments, CH, stream)
     if err != 0:
         raise RuntimeError(f"segment_moments kernel launch failed: CUDA error {err}")
-    build.LAUNCHES["segment_moments"] += 1
+    profiling.count("kernel.segment_moments")
     return out
 
 

@@ -21,6 +21,7 @@ import ctypes
 
 import torch
 
+from ..utils import profiling
 from . import build
 
 MAX_P = 64  # each lane of the kernel's warp owns at most 3 of the P + 1 rows
@@ -77,7 +78,7 @@ def chol_solve_cuda(A, b):
     err = _lib()(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, P, stream)
     if err != 0:
         raise RuntimeError(f"chol_solve kernel launch failed: CUDA error {err}")
-    build.LAUNCHES["chol_solve"] += 1
+    profiling.count("kernel.chol_solve")
     return x
 
 

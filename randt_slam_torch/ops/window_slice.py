@@ -17,6 +17,7 @@ import ctypes
 
 import torch
 
+from ..utils import profiling
 from . import build
 
 MAX_WIN = 1024  # the widest window the wrapper takes
@@ -75,7 +76,7 @@ def row_windows_cuda(img, rng_row, starts, win: int):
                  out_img.data_ptr(), out_rng.data_ptr(), B, A, R, win, stream)
     if err != 0:
         raise RuntimeError(f"row_windows kernel launch failed: CUDA error {err}")
-    build.LAUNCHES["row_windows"] += 1
+    profiling.count("kernel.row_windows")
     return out_img, out_rng
 
 

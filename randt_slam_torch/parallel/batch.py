@@ -19,6 +19,11 @@ the whole batch's, as the JAX package's ``out_specs=P("data")``.
 
 No ScanContext descriptor is made (``with_descriptor=False``): a fleet
 throughput batch runs no loop pass per step, as in the JAX package.
+
+Each call of a scan function is a span ``randt.batch_chunk`` with the
+call's index as ``chunk`` (``utils/profiling``); the spans inside it carry
+the frame's index in the chunk as ``t``; ``randt.outputs_to_host`` holds the
+outputs' copy to the host and the host's wait for the device.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from .. import runtime
 from ..config import SlamConfig
 from ..pipeline import frontend as F
 from ..pipeline import slam
+from ..utils import profiling
 from . import mesh
 
 __all__ = ["init_batched_carry", "make_batched_scan"]
@@ -88,22 +94,28 @@ def make_batched_scan(cfg: SlamConfig, sensor_to_base, device=None, group=None):
     group, B must divide by its size."""
     dev = runtime.resolve_device(device)
     s2b = torch.as_tensor(np.asarray(sensor_to_base, np.float32)).to(dev)
+    calls = 0
 
     def scan_fn(carries: F.FrontendCarry, frames: F.Frame, on_frame=None):
+        nonlocal calls
         lo, hi = mesh.shard_range(frames.stamp.shape[0], group)
         if carries.cur_pose.shape[0] != hi - lo:
             raise ValueError(f"carries of {carries.cur_pose.shape[0]} members for "
                              f"this rank's {hi - lo}")
-        frames = F.Frame(*(x[lo:hi].to(dev) for x in frames))
-        outs = []
-        for t in range(frames.stamp.shape[1]):
-            if on_frame is not None:
-                on_frame(t, carries)
-            fr = F.Frame(*(x[:, t] for x in frames))
-            carries, out = F.frontend_step(cfg, carries, fr, s2b,
-                                           with_descriptor=False)
-            outs.append(out)
-        outs = slam.stack_outputs(outs, batch=hi - lo)
+        with profiling.span("randt.batch_chunk", chunk=calls):
+            calls += 1
+            frames = F.Frame(*(x[lo:hi].to(dev) for x in frames))
+            outs = []
+            for t in range(frames.stamp.shape[1]):
+                if on_frame is not None:
+                    on_frame(t, carries)
+                fr = F.Frame(*(x[:, t] for x in frames))
+                with profiling.ids(t=t):
+                    carries, out = F.frontend_step(cfg, carries, fr, s2b,
+                                                   with_descriptor=False)
+                outs.append(out)
+            with profiling.span("randt.outputs_to_host"):
+                outs = slam.stack_outputs(outs, batch=hi - lo)
         if group is not None:
             outs = _gather_outputs(outs, group, dev)
         return carries, outs

@@ -55,6 +55,7 @@ from ..ndt import grid as G
 from ..ndt.cells import CellStats
 from ..registration import matcher
 from ..registration import residuals as R
+from ..utils import profiling
 
 # Carry fields kept as Python values (the cadence state).
 HOST_FIELDS = ("traj_len", "kq_len", "n_finished", "has_prev", "node_count",
@@ -350,7 +351,7 @@ def flush_submap(cfg: SlamConfig, c: FrontendCarry) -> FrontendCarry:
 # ---------------------------------------------------------------------------
 
 
-@torch.profiler.record_function("randt.frontend_step")
+@profiling.span("randt.frontend_step")
 def frontend_step(cfg: SlamConfig, carry: FrontendCarry, frame: Frame,
                   sensor_to_base, with_descriptor: bool = True,
                   with_scan_cells: bool = False) -> tuple:

@@ -47,6 +47,7 @@ from ..ndt import cells as C
 from ..ndt import divergence as D
 from ..registration import matcher
 from ..utils import checkpoint as CK
+from ..utils import profiling
 from . import frontend as F
 from .slam import ogm_max_steps
 
@@ -148,7 +149,7 @@ class OnlineSlam:
                     odom_pose=v[18:21].astype(f32), index=int(v[21]),
                     rejected=bool(v[22]) if len(v) > 22 else bool(rejected))
 
-    @torch.profiler.record_function("randt.online_record")
+    @profiling.span("randt.online_record")
     def _record_outputs(self, out: F.FrameOutput, h: dict):
         nodes, edges = out.nodes, out.edges
         cap = self._sc_desc.shape[0]
@@ -258,7 +259,7 @@ class OnlineSlam:
         return dict(device=len(dev), device_bytes=sum(dev), host=len(host),
                     host_bytes=sum(host), reuploads=self.grid_reuploads)
 
-    @torch.profiler.record_function("randt.online_refine")
+    @profiling.span("randt.online_refine")
     def _refine_and_gate(self, sub: int, poses: torch.Tensor, yaw, cells):
         """GNC loop refinement and the CS-divergence gate of one candidate
         (``estimateLoopConstraint`` + ``calculateCSDivergence``) against the
@@ -289,7 +290,7 @@ class OnlineSlam:
         """One radar frame (tensors on the engine's device); returns the
         current global pose (/ndt_odom)."""
         t0 = _pc()
-        with torch.profiler.record_function("randt.online_step"):
+        with profiling.span("randt.online_step"):
             self.carry, out = F.frontend_step(self.cfg, self.carry, frame, self.s2b,
                                               with_scan_cells=True)
             h = self._fetch(out, frame)
@@ -319,7 +320,7 @@ class OnlineSlam:
             self.stage_walls["pgo"].append(_pc() - t0)
         return self.odom_trace[-1]
 
-    @torch.profiler.record_function("randt.online_loops")
+    @profiling.span("randt.online_loops")
     def detect_loops(self):
         """``LocalFuser::detectLoopClosures`` over the pending keyframe
         queue, one query at a time: ScanContext retrieval (one fetch), then
@@ -367,7 +368,7 @@ class OnlineSlam:
         self.detect_loops()
         self.optimize_pose_graph(final=True)
 
-    @torch.profiler.record_function("randt.online_pgo")
+    @profiling.span("randt.online_pgo")
     def optimize_pose_graph(self, final: bool = False):
         """``NDTSlam::optimizePoseGraph`` + ``LocalFuser::updateSubmaps``."""
         cfg = self.cfg
@@ -411,7 +412,7 @@ class OnlineSlam:
     def trajectory(self) -> np.ndarray:
         return np.stack(self.node_pose) if self.node_pose else np.zeros((0, 3))
 
-    @torch.profiler.record_function("randt.online_ogm")
+    @profiling.span("randt.online_ogm")
     def render_ogm(self) -> np.ndarray:
         """Fuse the counting grids at the CURRENT (post-pose-graph) submap
         origins into the global occupancy grid (``MasterMap::getOGM``)."""

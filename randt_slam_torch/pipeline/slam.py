@@ -32,6 +32,7 @@ import torch
 
 from .. import runtime
 from ..config import SlamConfig
+from ..utils import profiling
 from . import frontend as F
 
 
@@ -428,7 +429,7 @@ def ogm_max_steps(cfg: SlamConfig) -> int:
     return min(2048, 2 * int(cfg.preprocessor.max_range / cfg.ogm.resolution))
 
 
-@torch.profiler.record_function("randt.ogm")
+@profiling.span("randt.ogm")
 def render_ogm(cfg: SlamConfig, result: SlamResult, frames: F.Frame,
                sensor_to_base=None, device=None, chunk: int = 32):
     """Occupancy-grid post-pass (``raytrace`` + ``visualizeMap`` timers,

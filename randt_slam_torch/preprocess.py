@@ -29,6 +29,7 @@ import torch.nn.functional as Fn
 from .config import PreprocessorConfig
 from .geometry import transform_points
 from .ops.window_slice import row_windows
+from .utils import profiling
 
 
 class PolarScan(NamedTuple):
@@ -63,7 +64,7 @@ class FilteredScan(NamedTuple):
     beam_mask: torch.Tensor
 
 
-@torch.profiler.record_function("randt.filter_scan")
+@profiling.span("randt.filter_scan")
 def filter_scan(
     scan: PolarScan,
     cfg: PreprocessorConfig,

@@ -47,6 +47,7 @@ from ..geometry import compose, normalize_angle, rotmat
 from ..ndt import grid as G
 from ..ops import ndt_linearize as NL
 from ..ops import small_chol
+from ..utils import profiling
 from . import barron
 from . import residuals as R
 from . import solver
@@ -98,7 +99,7 @@ def predict_next_state(state, raw_dt):
     return R.predict_state(torch.where(acc, 0.0, state), raw_dt)
 
 
-@torch.profiler.record_function("randt.ndt_autograd")
+@profiling.span("randt.ndt_autograd")
 def ndt_blocks_autograd(pose_w, m_mean, m_cov, f_mean, f_cov, pair_valid,
                         ndt_scale, scale: float, alpha: float, mu,
                         use_intensity: bool = True):
@@ -422,7 +423,7 @@ def _loop_pairs(m_mean, m_cov, m_valid, assoc: G.NeighborSet):
             safe_cov[..., :, None, :, :].expand(assoc.cov.shape))
 
 
-@torch.profiler.record_function("randt.csm_search")
+@profiling.span("randt.csm_search")
 def global_grid_search(cfg: SlamConfig, init_pose, f_mean, f_cov, f_valid,
                        m_mean, m_cov, m_valid, search_window_linear=None,
                        search_window_angular=None, beam_width: int = 16,
@@ -528,7 +529,7 @@ class LoopEstimate(NamedTuple):
     n_pairs: torch.Tensor    # (B,)
 
 
-@torch.profiler.record_function("randt.loop_refine")
+@profiling.span("randt.loop_refine")
 def estimate_loop(cfg: SlamConfig, init_pose, f_mean, f_cov, f_valid,
                   m_mean, m_cov, m_valid) -> LoopEstimate:
     """GNC refinement of a batch of loop-closure candidates

@@ -32,6 +32,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..geometry import normalize_angle
+from ..utils import profiling
 from . import barron
 
 
@@ -67,6 +68,7 @@ def lm_solve(
     ftol: float = 1e-6,
     cost_fn: Callable | None = None,
     solve_fn: Callable | None = None,
+    live=None,
 ):
     """Damped Gauss-Newton (LM) at a fixed GNC mu, ``max_iters`` iterations.
 
@@ -76,6 +78,10 @@ def lm_solve(
     cost_fn(params, mu) -> robust cost, if given, replaces the cost from
     ``residual_fn`` (the fused K3b pass); solve_fn(A, b) -> x, if given,
     replaces ``torch.linalg.solve_ex`` for the damped SPD system (K4).
+    ``live``, if given, is an int32 tensor of the batch shape holding
+    ``max_iters``: each iteration takes one from it, in place, for every
+    problem already done, so it ends as the count of iterations that
+    worked on each problem.
     """
     active_f = active_mask.to(params0.dtype)
 
@@ -92,6 +98,8 @@ def lm_solve(
     lam = torch.full(batch, 1e-4, dtype=params0.dtype, device=params0.device)
     done = torch.zeros(batch, dtype=torch.bool, device=params0.device)
     for _ in range(max_iters):
+        if live is not None:
+            live.add_(done, alpha=-1)
         H, g = linearize_fn(p, mu)
         # Jacobi-scale the normal equations before solving (curvatures span
         # ~10 decades; an unscaled float32 solve leaks error into the weak
@@ -129,7 +137,7 @@ def lm_solve(
     return p, c
 
 
-@torch.profiler.record_function("randt.lm_solve")
+@profiling.span("randt.lm_solve")
 def gnc_solve(
     residual_fn: Callable,
     linearize_fn: Callable,
@@ -155,7 +163,15 @@ def gnc_solve(
 
     ``cost_fn(p, mu)`` / ``r2max_fn(p)`` / ``solve_fn(A, b)``, if given,
     replace the residual-stack cost (initial, trial and final), the largest
-    squared residual of the mu initialisation, and the damped solve."""
+    squared residual of the mu initialisation, and the damped solve.
+
+    While the registry counts (``utils/profiling.counting``), the solve
+    keeps a sample ``randt.lm_solve`` of two lists over its rounds:
+    ``live``, each problem's count of the round's LM iterations that
+    worked on it (the rest were frozen by ``done``), and ``kept``, whether
+    the round's result was kept (None for round 0, always kept).  That
+    costs one launch per round and one per LM iteration, and no host
+    read."""
     if r2max_fn is not None:
         s0_max = r2max_fn(params0)
     else:
@@ -163,20 +179,29 @@ def gnc_solve(
         s0_max = torch.amax(torch.where(ndt_valid, rn0 * rn0, 0.0), dim=-1)
     mu = barron.gnc_mu_init(s0_max, scale, gnc_steps, divisor)
 
+    counting = profiling.counting()
+    lives, kept = [], []
     p = params0
     for r in range(gnc_steps):
         mu_eff = torch.clamp(mu, min=1.0)
+        live = (torch.full(params0.shape[:-1], lm_max_iters, dtype=torch.int32,
+                           device=params0.device) if counting else None)
         p_new, _ = lm_solve(
             residual_fn, linearize_fn, p, active_mask, angle_mask, ndt_valid,
             aux_valid, ndt_scale, scale, alpha, mu_eff, lm_max_iters, lm_tol,
-            ftol=lm_ftol, cost_fn=cost_fn, solve_fn=solve_fn,
+            ftol=lm_ftol, cost_fn=cost_fn, solve_fn=solve_fn, live=live,
         )
         if r == 0:  # the do-while's first round always runs
             p, mu = p_new, mu / divisor
+            run = None
         else:
             run = barron.gnc_continue(mu, divisor)
             p = torch.where(run[..., None], p_new, p)
             mu = torch.where(run, mu / divisor, mu)
+        lives.append(live)
+        kept.append(run)
+    if counting:
+        profiling.record("randt.lm_solve", live=lives, kept=kept)
     mu_fin = torch.clamp(mu, min=1.0)
     if cost_fn is not None:
         final_cost = cost_fn(p, mu_fin)

@@ -8,8 +8,8 @@ time, loop search and pose graph on their cadences, the pose graph
 re-anchoring the active submap mid-run); TUM + KITTI trajectories
 (per-frame odometry and the nodes), ``trajectory.json`` and
 ``metrics.json`` (``n_loop_closures``, odometry and SLAM ATE/RPE against
-ground truth, frames/s, per-phase wall seconds; online, the stage
-``profile``).  ``--ogm`` writes the global occupancy grid (``ogm.pgm``),
+ground truth, frames/s, per-phase wall seconds, and ``profile``: the
+wall of every span of the run aggregated by name, ``utils/profiling``).  ``--ogm`` writes the global occupancy grid (``ogm.pgm``),
 ``--export-ndt`` the last submap's NDT cells (``ndt_submap.npz``),
 ``--render`` the map view (``map.png``; needs matplotlib); ``--ref-yaml``
 reads the reference's layered YAML files in place of the preset.
@@ -305,8 +305,7 @@ def _run(args):
     }
     if saturation is not None:
         metrics["saturation"] = saturation
-    if args.online:
-        metrics["profile"] = prof.report()
+    metrics["profile"] = prof.report()
     if gt_poses is not None:
         metrics["odom_ate_m"] = round(formats.ate(odom, gt_poses[:T]), 4)
         metrics["slam_ate_m"] = round(

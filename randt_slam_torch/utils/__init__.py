@@ -1,1 +1,3 @@
-from . import checkpoint, profiling  # noqa: F401
+# ``checkpoint`` is imported where it is used: it reaches the pipeline, whose
+# modules import ``profiling``.
+from . import profiling  # noqa: F401

@@ -594,19 +594,26 @@ def test_cli_online_live_view(tmp_path, tiny_cli):
 
 
 def test_profiler_stages_and_device_trace(tmp_path):
-    """``utils/profiling``: stages accumulate as the JAX package's do, and
-    ``device_trace`` writes a Chrome trace holding the ranges it saw."""
+    """``utils/profiling``: stages accumulate as the JAX package's do, the
+    report aggregates every span recorded since the ``Profiler`` was made
+    (stages and the program's spans alike), and under ``torch.profiler``
+    each span is a range of its name in the profiler's own Chrome trace."""
+    from torch.profiler import ProfilerActivity, profile
+
     from randt_slam_torch.utils import profiling
 
     prof = profiling.Profiler()
     for _ in range(3):
         with prof.stage("a", sync_value=torch.zeros(2)):
             pass
-    with profiling.device_trace(str(tmp_path)):
-        with torch.profiler.record_function("randt.test_range"):
+    with profile(activities=[ProfilerActivity.CPU]) as tp:
+        with profiling.span("randt.test_range", chunk=1):
             torch.ones(4).sum()
+    tp.export_chrome_trace(str(tmp_path / "trace.json"))
     rep = prof.report()
     assert rep["a"]["count"] == 3 and rep["a"]["min_s"] <= rep["a"]["max_s"]
+    assert rep["randt.test_range"]["count"] == 1
+    assert set(rep["a"]) == {"count", "total_s", "mean_s", "min_s", "max_s"}
     prof.dump(str(tmp_path / "p.json"))
     assert json.loads((tmp_path / "p.json").read_text()) == rep
     trace = json.loads((tmp_path / "trace.json").read_text())

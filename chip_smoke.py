@@ -67,7 +67,10 @@ Phases (any failed check raises and the script exits non-zero):
    (one solved): device busy share, launches per LM iteration, the kernels that take the device time, and
    host and device time per layer of the port; the switches-on window must
    hold no LU (``getrf``/``getrs``) kernel and no autograd pass over the NDT
-   residuals (``randt.ndt_autograd``);
+   residuals (``randt.ndt_autograd``), the switches-off window some; each
+   window's solved frame is the first of its run's graph key, so it runs
+   eagerly and is captured inside the window (a replayed CUDA graph runs
+   no Python), and a window that captured nothing fails;
 7. full SLAM: ``run_slam`` over a looping drive of that geometry (240
    frames, 1.5 laps of 160 m), the frames in host memory and uploaded 64 at
    a time (``run_slam(..., chunk=64)``, as the JAX package's bench.py runs
@@ -736,12 +739,15 @@ def spying_solves(frame):
     pair packs, slot poses, mu and NDT scale) and the damped systems K4
     solves there, on the switches-on path run inside the block; yields
     (now, lin, chol): the caller's ``on_frame`` sets ``now[0]`` to the
-    frame about to be stepped."""
+    frame about to be stepped.  The solve of frame ``frame`` runs eagerly:
+    a replayed CUDA graph of it would call no kernel wrapper."""
     from randt_slam_torch.ops import ndt_linearize as NL
     from randt_slam_torch.ops import small_chol
+    from randt_slam_torch.registration import solve_graph
 
     now, lin, chol = [-1], [], []
     orig_lin, orig_chol = NL.linearize, small_chol.chol_solve
+    graphs = solve_graph.SolveGraphs.__call__
 
     def spy_lin(poses, mu, ndt_scale, packed, *a, **k):
         if now[0] == frame:
@@ -754,11 +760,16 @@ def spying_solves(frame):
             chol.append((A.clone(), b.clone()))
         return orig_chol(A, b)
 
+    def solve(self, part, fn, args):
+        return fn(*args) if now[0] == frame else graphs(self, part, fn, args)
+
     NL.linearize, small_chol.chol_solve = spy_lin, spy_chol
+    solve_graph.SolveGraphs.__call__ = solve
     try:
         yield now, lin, chol
     finally:
         NL.linearize, small_chol.chol_solve = orig_lin, orig_chol
+        solve_graph.SolveGraphs.__call__ = graphs
     if not lin or len(chol) != len(lin):
         raise AssertionError(f"captured {len(lin)} linearizations and {len(chol)} "
                              f"solves in frame {frame}")
@@ -1124,6 +1135,7 @@ def run_path(label, cfg, frames, short, first, gt, dev, scans, az, ranges, stamp
     from randt_slam_torch.io import formats
     from randt_slam_torch.ops import build
     from randt_slam_torch.pipeline import slam
+    from randt_slam_torch.utils import profiling
 
     # ---- 5. (first part) two CUDA runs of the first frames: the second from
     # host memory in chunks of SHORT_CHUNK (a node leaves the keyframe queue
@@ -1238,10 +1250,17 @@ def run_path(label, cfg, frames, short, first, gt, dev, scans, az, ranges, stamp
           f"{d[:, 2].max():.2e} rad of the CUDA run", flush=True)
 
     # ---- 6. profile ------------------------------------------------------------
+    captures = profiling.counter("lm_graph.capture")
     names, layers = profile_frames(label, cfg, frames, 2, dev)
+    captures = profiling.counter("lm_graph.capture") - captures
     lu = sorted({k for k in names if "getrf" in k.lower() or "getrs" in k.lower()})
     print(f"switches {label}: LU kernels in the window: {lu or 'none'}; NDT autograd "
-          f"range {'present' if 'randt.ndt_autograd' in layers else 'absent'}", flush=True)
+          f"range {'present' if 'randt.ndt_autograd' in layers else 'absent'}; "
+          f"{captures} window solve captured", flush=True)
+    # the window's solve is what its run's later frames replay
+    if captures != 1:
+        raise AssertionError(f"switches {label}: the profiled window captured "
+                             f"{captures} window solves, not 1")
     if lin and "randt.ndt_autograd" in layers:
         raise AssertionError("switches on: the NDT residuals went through autograd")
     if m.use_pallas_chol and lu:
@@ -1670,6 +1689,7 @@ def online_phase(cfg, res, frames, gt, dev, smi):
     from randt_slam_torch.ops import build
     from randt_slam_torch.pipeline import frontend as F
     from randt_slam_torch.pipeline.online import OnlineSlam
+    from randt_slam_torch.utils import profiling
 
     cfg = dataclasses.replace(cfg, visualize_ogm=True)
     n = N_ONLINE
@@ -1721,7 +1741,7 @@ def online_phase(cfg, res, frames, gt, dev, smi):
     with counting_solves() as solves:
         build.reset_launches()
         t0 = time.perf_counter()
-        marks = []
+        marks, walls, captured, n_rec = [], [], [], profiling.REGISTRY.n
         for t in range(n):
             if t == ONLINE_SAVE_AT:
                 t_save = time.perf_counter()
@@ -1729,8 +1749,12 @@ def online_phase(cfg, res, frames, gt, dev, smi):
                 save_s = time.perf_counter() - t_save
                 pending = list(eng._pending_loop_queries)
                 saved_nodes = len(eng.node_pose)
+            c0 = profiling.counter("lm_graph.capture")
             marks.append(time.perf_counter())
             eng.process_frame(frame(t))
+            walls.append(time.perf_counter() - marks[-1])
+            if profiling.counter("lm_graph.capture") > c0:
+                captured.append(t)
         t_end = time.perf_counter()
         eng.finalize()
         wall = time.perf_counter() - t0
@@ -1792,6 +1816,23 @@ def online_phase(cfg, res, frames, gt, dev, smi):
           f"beside {ONLINE_PEAK_RESIDENT_GIB} GiB with every grid and the frames on "
           f"the card", flush=True)
     print(f"host after online SLAM: {host_cpu()}", flush=True)
+    # the frames whose window solve ran eagerly and was captured (the first of
+    # each graph key) against the others: the front-end step's span
+    # (``randt.online_step``, ring) and the frame's whole process_frame wall
+    step_ms = [(r.end - r.start) / 1e6 for r in profiling.records(n_rec)
+               if r.name == "randt.online_step"]
+    frame_ms = np.asarray(walls) * 1e3
+    others = [t for t in range(n) if t not in captured]
+    if len(step_ms) != n or not captured:
+        raise AssertionError(f"online SLAM: {len(step_ms)} randt.online_step records "
+                             f"over {n} frames, captures at frames {captured}")
+    print(f"online SLAM: frames {captured} captured a window solve: randt.online_step "
+          f"{[round(step_ms[t], 1) for t in captured]} ms, process_frame "
+          f"{[round(float(frame_ms[t]), 1) for t in captured]} ms; the other {len(others)} "
+          f"frames: randt.online_step median {np.median([step_ms[t] for t in others]):.1f} "
+          f"(max {max(step_ms[t] for t in others):.1f}) ms, process_frame median "
+          f"{np.median(frame_ms[others]):.1f} (max {frame_ms[others].max():.1f}) ms",
+          flush=True)
     print(f"online SLAM: pose-graph ticks {[(k['frame'], k['loops'], k['moved'], round(k['s'], 3)) for k in ticks]} "
           f"(frame count, loop edges, origin moved, s); first re-anchoring after "
           f"frame {first}: odometry bitwise phase 7's on frames 0..{first - 1}; node "

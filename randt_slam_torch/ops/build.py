@@ -10,8 +10,8 @@ failed compile raises.
 Every wrapper counts one launch of its kernel, where it launches it and
 nowhere else, as the registry's host counter ``kernel.<name>``
 (``utils/profiling``); ``LAUNCHES`` is a view of those counters by kernel
-name.  They count host dispatches: under a CUDA graph they would count
-captures, not replays.
+name.  Inside a CUDA graph's capture they count nothing, and each replay
+adds what its capture launched (``utils/profiling.captured``).
 """
 
 from __future__ import annotations

@@ -35,6 +35,7 @@ from .. import runtime
 from ..config import SlamConfig
 from ..pipeline import frontend as F
 from ..pipeline import slam
+from ..registration import solve_graph
 from ..utils import profiling
 from . import mesh
 
@@ -91,9 +92,11 @@ def make_batched_scan(cfg: SlamConfig, sensor_to_base, device=None, group=None):
     updated in place (the submap store) and must not be used again; they
     stay this rank's.  ``on_frame(t, carries)`` is called as in
     ``pipeline/slam.run_odometry``: before frame ``t`` is stepped.  With a
-    group, B must divide by its size."""
+    group, B must divide by its size.  ``scan_fn`` keeps the CUDA graphs of
+    its window solves (``registration/solve_graph``) while it lives."""
     dev = runtime.resolve_device(device)
     s2b = torch.as_tensor(np.asarray(sensor_to_base, np.float32)).to(dev)
+    graphs = solve_graph.SolveGraphs()
     calls = 0
 
     def scan_fn(carries: F.FrontendCarry, frames: F.Frame, on_frame=None):
@@ -112,7 +115,7 @@ def make_batched_scan(cfg: SlamConfig, sensor_to_base, device=None, group=None):
                 fr = F.Frame(*(x[:, t] for x in frames))
                 with profiling.ids(t=t):
                     carries, out = F.frontend_step(cfg, carries, fr, s2b,
-                                                   with_descriptor=False)
+                                                   with_descriptor=False, graphs=graphs)
                 outs.append(out)
             with profiling.span("randt.outputs_to_host"):
                 outs = slam.stack_outputs(outs, batch=hi - lo)

@@ -354,14 +354,16 @@ def flush_submap(cfg: SlamConfig, c: FrontendCarry) -> FrontendCarry:
 @profiling.span("randt.frontend_step")
 def frontend_step(cfg: SlamConfig, carry: FrontendCarry, frame: Frame,
                   sensor_to_base, with_descriptor: bool = True,
-                  with_scan_cells: bool = False) -> tuple:
+                  with_scan_cells: bool = False, graphs=None) -> tuple:
     """One radar frame through the front end, including the submap-completion
     re-processing of the same frame (``ndt_slam.cpp:219-223``), for one
     sequence or a batch of them (see the module docstring).  Without
     ``with_descriptor`` no ScanContext descriptor is made (``sc_desc`` is
     None), as the batched fleet runs go; a batch takes no descriptor.  With
     ``with_scan_cells`` the output also carries the scan's derived cells and
-    beams, tensors the step computes anyway."""
+    beams, tensors the step computes anyway.  ``graphs`` is the run's cache
+    of window-solve CUDA graphs (``registration/solve_graph``), or None to
+    solve eagerly."""
     if with_descriptor and carry.cur_pose.dim() > 1:
         raise ValueError("frontend_step: a batch takes with_descriptor=False")
     scan, filt = build_scan_cells(cfg, frame, sensor_to_base)
@@ -371,7 +373,7 @@ def frontend_step(cfg: SlamConfig, carry: FrontendCarry, frame: Frame,
         # (``local_fuser.h:139-141``), emitted for the loop-closure pass.
         desc = SC.make_descriptor(filt.polar, filt.points[:, 2], filt.mask,
                                   cfg.scan_context)
-    carry1, out1 = _process_scan(cfg, carry, frame, scan)
+    carry1, out1 = _process_scan(cfg, carry, frame, scan, graphs)
 
     # Persist the RUNNING submap's compact stats into its store row every
     # step; rows at or beyond ``store_count`` are never read, and on the
@@ -382,7 +384,7 @@ def frontend_step(cfg: SlamConfig, carry: FrontendCarry, frame: Frame,
 
     if carry1.traj_len >= cfg.local_fuser.submap_size_poses:
         c2 = _start_new_submap(cfg, carry1)
-        carry2, out2 = _process_scan(cfg, c2, frame, scan)
+        carry2, out2 = _process_scan(cfg, c2, frame, scan, graphs)
         # out2 only ever produces the root node of the new submap in slot 1;
         # keep out1's slot-0 node (keyframe exit of the old submap).
         nl = carry.cur_pose.dim() - 1
@@ -468,10 +470,10 @@ def _start_new_submap(cfg: SlamConfig, c: FrontendCarry) -> FrontendCarry:
 
 
 def _process_scan(cfg: SlamConfig, c: FrontendCarry, frame: Frame,
-                  scan: ScanCells) -> tuple:
+                  scan: ScanCells, graphs) -> tuple:
     if c.traj_len == 0:
         return _first_scan(cfg, c, frame, scan)
-    return _regular_scan(cfg, c, frame, scan)
+    return _regular_scan(cfg, c, frame, scan, graphs)
 
 
 def _first_scan(cfg: SlamConfig, c: FrontendCarry, frame: Frame,
@@ -549,7 +551,7 @@ def _first_scan(cfg: SlamConfig, c: FrontendCarry, frame: Frame,
 
 
 def _regular_scan(cfg: SlamConfig, c: FrontendCarry, frame: Frame,
-                  scan: ScanCells) -> tuple:
+                  scan: ScanCells, graphs) -> tuple:
     """Odometry path (``local_fuser.cpp:108-224``)."""
     dtype = c.states.dtype
     dev = c.states.device
@@ -605,6 +607,7 @@ def _regular_scan(cfg: SlamConfig, c: FrontendCarry, frame: Frame,
         matcher.ScanWindow(mean=scan_mean, cov=scan_cov, valid=scan_valid),
         fixed,
         prior_pose,
+        graphs,
     )
     states = torch.cat([states[..., :TB - W - 1, :], est.states], dim=-2)
     cur_pose = states[..., -1, :3]

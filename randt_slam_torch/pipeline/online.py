@@ -46,6 +46,7 @@ from ..mapping import raytrace as RT
 from ..ndt import cells as C
 from ..ndt import divergence as D
 from ..registration import matcher
+from ..registration import solve_graph
 from ..utils import checkpoint as CK
 from ..utils import profiling
 from . import frontend as F
@@ -67,6 +68,7 @@ class OnlineSlam:
         self.s2b = (torch.zeros(3, device=dev) if sensor_to_base is None else
                     torch.as_tensor(np.asarray(sensor_to_base, np.float32)).to(dev))
         self.carry = F.init_carry(cfg, initial_pose=initial_pose, device=dev)
+        self.graphs = solve_graph.SolveGraphs()   # the window solves' CUDA graphs
         self.loop_every = loop_every
         self.pgo_every = pgo_every
         # the ScanContext database, padded to max_nodes and written in place
@@ -292,7 +294,7 @@ class OnlineSlam:
         t0 = _pc()
         with profiling.span("randt.online_step"):
             self.carry, out = F.frontend_step(self.cfg, self.carry, frame, self.s2b,
-                                              with_scan_cells=True)
+                                              with_scan_cells=True, graphs=self.graphs)
             h = self._fetch(out, frame)
         self.stage_walls["step"].append(_pc() - t0)
         t0 = _pc()

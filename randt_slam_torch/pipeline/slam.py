@@ -32,6 +32,7 @@ import torch
 
 from .. import runtime
 from ..config import SlamConfig
+from ..registration import solve_graph
 from ..utils import profiling
 from . import frontend as F
 
@@ -255,6 +256,7 @@ def run_odometry(
     if frames.stamp.device != dev and not chunked:
         frames = F.Frame(*(x.to(dev) for x in frames))
     carry = F.init_carry(cfg, initial_pose=initial_pose, device=dev)
+    graphs = solve_graph.SolveGraphs()
 
     def steps(part, lo, hi):
         nonlocal carry
@@ -263,7 +265,7 @@ def run_odometry(
             if on_frame is not None:
                 on_frame(t, carry)
             fr = F.Frame(*(x[t - lo] for x in part))
-            carry, out = F.frontend_step(cfg, carry, fr, s2b)
+            carry, out = F.frontend_step(cfg, carry, fr, s2b, graphs=graphs)
             outs.append(out)
         return outs
 

@@ -21,6 +21,12 @@ fixed maps (B, F, ...)) solved in the same operations, each with its own
 association, NDT scale, robust cost and GNC schedule (``solver.py`` keeps
 every per-problem quantity per member) and its own pose-jump rejection.
 
+The GNC-LM solve itself (:func:`_window_solve`) is a function of its
+tensors and of host values alone.  On a CUDA tensor, given the run's
+``solve_graph.SolveGraphs``, it is captured as a CUDA graph once per key
+and replayed for every later frame of that key; on a CPU tensor it runs
+eagerly.
+
 ``MatcherConfig.use_pallas_linearize`` (3-D residual only) and
 ``use_pallas_chol`` route the LM loop through the fused kernels K3a/K3b
 (``ops/ndt_linearize``) and K4 (``ops/small_chol``): the CUDA kernels on a
@@ -35,6 +41,7 @@ correlative pre-alignment, also batched over candidates.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -158,73 +165,42 @@ def _window_masks(mcfg, W: int, n_exist: int):
     return slot_active, active_mask, angle_mask
 
 
-def estimate_window(
-    cfg: SlamConfig,
-    states,        # (..., W+1, 9) anchor + active states (newest = predicted)
-    stamps,        # (..., W+1)
-    state_exists,  # (W+1,) host bools -- False for slots before trajectory start
-    imu_meas,      # (..., W) relative yaw measurements per transition
-    scans: ScanWindow,
-    fixed: FixedMaps,
-    prior_pose,    # (..., 3) pose-jump rejection reference (pre-prediction pose)
-):
-    """One frame of the sliding-window smoother (``estimateTransformCeres``),
-    for one problem or a batch of them (leading axis ``...`` = (B,))."""
-    mcfg = cfg.matcher
+def _moving_pairs(m_mean, m_cov, a_mean, a_cov):
+    """Moving cells (..., W, C, ...) broadcast against their neighbours
+    (..., W, F, C, K, ...)."""
+    return (m_mean[..., :, None, :, None, :].expand(a_mean.shape),
+            m_cov[..., :, None, :, None, :, :].expand(a_cov.shape))
+
+
+def _window_solve(mcfg, n_exist: int, params0, dts, imu_meas, ndt_scale,
+                  pair_valid, *pairs) -> solver.SolveResult:
+    """The GNC-LM solve of a window, from the mu initialisation to the final
+    cost: a function of its tensors and of host values alone, so that one
+    CUDA graph of it serves every frame of a key: the matcher's
+    configuration (its switches, ``use_imu``, ``use_intensity_as_dimension``,
+    W, K and the solver's constants), ``n_exist``, and the layout of the
+    tensors (the batch shape, C and F among them; ``solve_graph.key``).
+
+    params0 (..., (W+1)*9) the window states, dts and imu_meas (..., W),
+    ndt_scale (...), pair_valid (..., W, F, C, K); ``pairs``: with the
+    fused kernels the pack of ``ops/ndt_linearize.pack_pairs``, else the
+    benign moving cells (..., W, C, 3) and (..., W, C, 3, 3) and their
+    neighbours' means and covariances (..., W, F, C, K, 3[, 3])."""
     W = mcfg.smoothing_steps
-    K = mcfg.n_results_nn_lookup
-    geom = G.GridGeom.from_config(cfg.ndt_map)
-    dtype = states.dtype
-    dev = states.device
-    lead = states.shape[:-2]
+    dtype, dev = params0.dtype, params0.device
+    lead = params0.shape[:-1]
     nl = len(lead)
     use_int = bool(mcfg.use_intensity_as_dimension)
-    lookup_dist = bool(mcfg.lookup_distribution) and use_int
-
-    n_exist = int(np.sum(np.asarray(state_exists, bool)))
+    fused = bool(mcfg.use_pallas_linearize) and use_int
     slot_active_np, active_np, angle_np = _window_masks(mcfg, W, n_exist)
-    slot_active = runtime.const(slot_active_np, torch.bool, dev)
     active_mask = runtime.const(active_np, torch.bool, dev)
     angle_mask = runtime.const(angle_np, torch.bool, dev)
-
-    # ---- data association (once per frame, at current estimates) ----------
-    poses = states[..., 1:, :3]  # (..., W, 3)
-    q_mu, q_cov = transform_mean_cov(poses, scans.mean, scans.cov)  # (..., W, C, ...)
-    C = scans.mean.shape[-2]
-    Fm = fixed.mean.shape[nl]
-    radius = cfg.ndt_map.nn_window_radius
-
-    per_map = []
-    for f in range(Fm):
-        nb = G.window_neighbors_sparse(
-            geom, fixed.index[f], fixed.mean.select(nl, f),
-            fixed.cov.select(nl, f), fixed.valid.select(nl, f),
-            q_mu.reshape(lead + (W * C, 3)), q_cov.reshape(lead + (W * C, 3, 3)),
-            scans.valid.reshape(lead + (W * C,)), K, radius,
-            use_distribution_metric=lookup_dist,
-        )
-        valid = nb.valid if fixed.use[f] else torch.zeros_like(nb.valid)
-        per_map.append(G.NeighborSet(
-            mean=nb.mean.reshape(lead + (W, C, K, 3)),
-            cov=nb.cov.reshape(lead + (W, C, K, 3, 3)),
-            valid=valid.reshape(lead + (W, C, K))))
-    assoc = G.NeighborSet(*(torch.stack(a, dim=nl + 1) for a in zip(*per_map)))
-    # assoc.*: (..., W, F, C, K, ...); rows <= anchor contribute no factors.
-    pair_valid = assoc.valid & slot_active[:, None, None, None]
-
-    # Benign values for invalid (padded) moving cells: keeps Jacobians finite.
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    safe_mean = torch.where(scans.valid[..., None], scans.mean, 0.0)
-    safe_cov = torch.where(scans.valid[..., None, None], scans.cov, eye3)
-    m_mean_b = safe_mean[..., :, None, :, None, :].expand(lead + (W, Fm, C, K, 3))
-    m_cov_b = safe_cov[..., :, None, :, None, :, :].expand(lead + (W, Fm, C, K, 3, 3))
 
     # ---- residual functions over flattened params ---------------------------
     # float32 product, as the JAX package forms it
     sqrtI = runtime.const(
         np.asarray(mcfg.motion_sqrt_information, np.float32)
         * np.float32(mcfg.covariance_scaling_factor), dtype, dev)
-    dts = stamps[..., 1:] - stamps[..., :-1]  # (..., W)
     w_imu, w_bias = mcfg.weight_imu, mcfg.weight_imu_bias
 
     def aux_fn(p_flat):
@@ -236,25 +212,11 @@ def estimate_window(
         return torch.cat([r_mot.reshape(lead + (-1,)), r_imu.reshape(lead + (-1,))],
                          dim=-1)
 
-    def residual_fn(p_flat):
-        p = p_flat.reshape(lead + (W + 1, 9))
-        pose_w = p[..., 1:, :3]
-        r_ndt = R.ndt_residual(
-            pose_w[..., :, None, None, None, :], m_mean_b, m_cov_b,
-            assoc.mean, assoc.cov, use_intensity=use_int,
-        )  # (..., W, F, C, K)
-        return r_ndt.reshape(lead + (-1,)), aux_fn(p_flat)
-
     ndt_valid = pair_valid.reshape(lead + (-1,))
     aux_valid = runtime.const(np.concatenate([
         np.repeat(slot_active_np, 8),
         np.repeat(slot_active_np & bool(mcfg.use_imu), 2),
     ]), torch.bool, dev)
-
-    n_cells = torch.sum(
-        torch.where(slot_active[:, None], scans.valid, False).to(dtype),
-        dim=(-2, -1))
-    ndt_scale = mcfg.ndt_weight / torch.clamp(n_cells * K, min=1.0)  # (...)
 
     # ---- structured linearizer ---------------------------------------------
     # The per-slot 3x3 JᵀWJ blocks of the NDT residuals are added into the
@@ -321,22 +283,14 @@ def estimate_window(
         g = g.index_put(g_at, gj * af_blk, accumulate=True)
         return H, g
 
-    def linearize_fn(p_flat, mu):
-        p = p_flat.reshape(lead + (W + 1, 9))
-        Hj, gj = ndt_blocks_autograd(p[..., 1:, :3], m_mean_b, m_cov_b, assoc.mean,
-                                     assoc.cov, pair_valid, ndt_scale, scale_,
-                                     alpha_, mu, use_intensity=use_int)
-        return assemble(p, Hj, gj)
-
-    # ---- fused kernels (K3a/K3b: 3-D residual only; K4) ---------------------
-    # The pairs are packed once per frame; per LM iteration K3a gives the NDT
-    # blocks, K3b the trial cost, K4 the damped solve.
     cost_fn = r2max_fn = solve_fn = None
     if mcfg.use_pallas_chol:
         solve_fn = small_chol.chol_solve
-    if mcfg.use_pallas_linearize and use_int:
-        packed = NL.pack_pairs(m_mean_b, m_cov_b, assoc.mean, assoc.cov,
-                               pair_valid, slot_dims=nl + 1)
+    if fused:
+        # Per LM iteration K3a gives the NDT blocks, K3b the trial cost, K4
+        # the damped solve.
+        packed = pairs
+        residual_fn = None  # cost_fn and r2max_fn stand in for it
         mu_one = runtime.const(np.ones(math.prod(lead), np.float32), dtype,
                                dev).reshape(lead)
 
@@ -344,7 +298,7 @@ def estimate_window(
             ra = aux_fn(p_flat)
             return torch.sum(torch.where(aux_valid, ra * ra, 0.0), dim=-1)
 
-        def linearize_fused(p_flat, mu):
+        def linearize_fn(p_flat, mu):
             p = p_flat.reshape(lead + (W + 1, 9))
             Hj, gj, _ = NL.linearize(p[..., 1:, :3], mu, ndt_scale, packed,
                                      float(scale_), float(alpha_))
@@ -360,13 +314,30 @@ def estimate_window(
             p = p_flat.reshape(lead + (W + 1, 9))
             return NL.robust_cost(p[..., 1:, :3], mu_one, packed, float(scale_),
                                   float(alpha_))[1]
+    else:
+        m_mean, m_cov, a_mean, a_cov = pairs
+        m_mean_b, m_cov_b = _moving_pairs(m_mean, m_cov, a_mean, a_cov)
 
-        linearize_fn = linearize_fused
+        def residual_fn(p_flat):
+            p = p_flat.reshape(lead + (W + 1, 9))
+            pose_w = p[..., 1:, :3]
+            r_ndt = R.ndt_residual(
+                pose_w[..., :, None, None, None, :], m_mean_b, m_cov_b,
+                a_mean, a_cov, use_intensity=use_int,
+            )  # (..., W, F, C, K)
+            return r_ndt.reshape(lead + (-1,)), aux_fn(p_flat)
 
-    res = solver.gnc_solve(
+        def linearize_fn(p_flat, mu):
+            p = p_flat.reshape(lead + (W + 1, 9))
+            Hj, gj = ndt_blocks_autograd(p[..., 1:, :3], m_mean_b, m_cov_b, a_mean,
+                                         a_cov, pair_valid, ndt_scale, scale_,
+                                         alpha_, mu, use_intensity=use_int)
+            return assemble(p, Hj, gj)
+
+    return solver.gnc_solve(
         residual_fn,
         linearize_fn,
-        states.reshape(lead + (-1,)),
+        params0,
         active_mask,
         angle_mask,
         ndt_valid,
@@ -383,6 +354,88 @@ def estimate_window(
         r2max_fn=r2max_fn,
         solve_fn=solve_fn,
     )
+
+
+def estimate_window(
+    cfg: SlamConfig,
+    states,        # (..., W+1, 9) anchor + active states (newest = predicted)
+    stamps,        # (..., W+1)
+    state_exists,  # (W+1,) host bools -- False for slots before trajectory start
+    imu_meas,      # (..., W) relative yaw measurements per transition
+    scans: ScanWindow,
+    fixed: FixedMaps,
+    prior_pose,    # (..., 3) pose-jump rejection reference (pre-prediction pose)
+    graphs=None,   # the run's solve_graph.SolveGraphs, or None
+):
+    """One frame of the sliding-window smoother (``estimateTransformCeres``),
+    for one problem or a batch of them (leading axis ``...`` = (B,)).  On a
+    CUDA tensor the solve replays ``graphs``' CUDA graph of its key; without
+    ``graphs`` it runs eagerly."""
+    mcfg = cfg.matcher
+    W = mcfg.smoothing_steps
+    K = mcfg.n_results_nn_lookup
+    geom = G.GridGeom.from_config(cfg.ndt_map)
+    dtype = states.dtype
+    dev = states.device
+    lead = states.shape[:-2]
+    nl = len(lead)
+    use_int = bool(mcfg.use_intensity_as_dimension)
+    lookup_dist = bool(mcfg.lookup_distribution) and use_int
+
+    n_exist = int(np.sum(np.asarray(state_exists, bool)))
+    slot_active = runtime.const(_window_masks(mcfg, W, n_exist)[0], torch.bool, dev)
+
+    # ---- data association (once per frame, at current estimates) ----------
+    poses = states[..., 1:, :3]  # (..., W, 3)
+    q_mu, q_cov = transform_mean_cov(poses, scans.mean, scans.cov)  # (..., W, C, ...)
+    C = scans.mean.shape[-2]
+    Fm = fixed.mean.shape[nl]
+    radius = cfg.ndt_map.nn_window_radius
+
+    per_map = []
+    for f in range(Fm):
+        nb = G.window_neighbors_sparse(
+            geom, fixed.index[f], fixed.mean.select(nl, f),
+            fixed.cov.select(nl, f), fixed.valid.select(nl, f),
+            q_mu.reshape(lead + (W * C, 3)), q_cov.reshape(lead + (W * C, 3, 3)),
+            scans.valid.reshape(lead + (W * C,)), K, radius,
+            use_distribution_metric=lookup_dist,
+        )
+        valid = nb.valid if fixed.use[f] else torch.zeros_like(nb.valid)
+        per_map.append(G.NeighborSet(
+            mean=nb.mean.reshape(lead + (W, C, K, 3)),
+            cov=nb.cov.reshape(lead + (W, C, K, 3, 3)),
+            valid=valid.reshape(lead + (W, C, K))))
+    assoc = G.NeighborSet(*(torch.stack(a, dim=nl + 1) for a in zip(*per_map)))
+    # assoc.*: (..., W, F, C, K, ...); rows <= anchor contribute no factors.
+    pair_valid = assoc.valid & slot_active[:, None, None, None]
+
+    # Benign values for invalid (padded) moving cells: keeps Jacobians finite.
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    safe_mean = torch.where(scans.valid[..., None], scans.mean, 0.0)
+    safe_cov = torch.where(scans.valid[..., None, None], scans.cov, eye3)
+
+    n_cells = torch.sum(
+        torch.where(slot_active[:, None], scans.valid, False).to(dtype),
+        dim=(-2, -1))
+    ndt_scale = mcfg.ndt_weight / torch.clamp(n_cells * K, min=1.0)  # (...)
+
+    # The fused kernels (K3a/K3b: 3-D residual only) read the pairs packed
+    # once per frame.
+    if mcfg.use_pallas_linearize and use_int:
+        pairs = NL.pack_pairs(*_moving_pairs(safe_mean, safe_cov, assoc.mean, assoc.cov),
+                              assoc.mean, assoc.cov, pair_valid, slot_dims=nl + 1)
+    else:
+        pairs = (safe_mean, safe_cov, assoc.mean, assoc.cov)
+    args = (states.reshape(lead + (-1,)), stamps[..., 1:] - stamps[..., :-1],
+            imu_meas, ndt_scale, pair_valid, *pairs)
+    if dev.type == "cuda" and graphs is not None:
+        res = graphs((mcfg, n_exist), functools.partial(_window_solve, mcfg, n_exist),
+                     args)
+    else:
+        if dev.type == "cuda":
+            profiling.count("lm_graph.eager")
+        res = _window_solve(mcfg, n_exist, *args)
     new_states = res.params.reshape(lead + (W + 1, 9))
 
     # ---- pose-jump rejection (``ndt_matcher.cpp:411-422``) -----------------

@@ -19,8 +19,10 @@ its own.
 
 * Host counts (:func:`count`, :func:`counter`): always on, plain integer
   adds.  The kernel wrappers count their launches as ``kernel.<name>``
-  (``ops/build.LAUNCHES`` is a view of them).  They count host dispatches:
-  under a CUDA graph they would count captures, not replays.
+  (``ops/build.LAUNCHES`` is a view of them).  A CUDA graph's capture
+  launches nothing: inside :func:`captured` the counts go to the capture,
+  and :func:`replayed` adds them at each replay, so the counters count
+  real launches.
 * Device samples (:func:`record`, :func:`samples`): tensors a layer keeps,
   such as the LM solve's per-member iteration counts, taken only while
   :func:`counting` (inside :func:`tracing`, or while a ``torch.profiler``
@@ -214,6 +216,49 @@ def record(name: str, **values) -> None:
 def samples(name: str | None = None) -> list:
     """The kept device samples (of ``name``), oldest first."""
     return [s for s in REGISTRY.samples if name is None or s.name == name]
+
+
+class Held(NamedTuple):
+    """What a CUDA graph's capture counted and sampled (:func:`captured`)."""
+    counts: dict
+    samples: list
+
+
+@contextlib.contextmanager
+def captured():
+    """The block is a CUDA graph's capture: its host counts and device
+    samples go to the yielded :class:`Held` instead of the registry, and
+    the counters are on, so that the graph computes its samples at every
+    replay whether or not the replay counts."""
+    reg = REGISTRY
+    held = Held({}, [])
+    saved = reg.counters, reg.samples
+    reg.counters, reg.samples = held.counts, held.samples
+    reg.tracing += 1
+    try:
+        yield held
+    finally:
+        reg.counters, reg.samples = saved
+        reg.tracing -= 1
+
+
+def _copied(v):
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, (list, tuple)):
+        return type(v)(_copied(x) for x in v)
+    return v
+
+
+def replayed(held: Held) -> None:
+    """Count a replay of a capture: add its counts, and while counting keep
+    copies of its samples (the graph's own tensors, which the next replay
+    overwrites), with this time and the open spans' ids."""
+    for k, n in held.counts.items():
+        count(k, n)
+    if counting():
+        for s in held.samples:
+            record(s.name, **{k: _copied(v) for k, v in s.values.items()})
 
 
 class CounterView(collections.abc.MutableMapping):

@@ -21,11 +21,18 @@ counters on, every span also a ``record_function`` range), as a
   it; the device mallocs and frees in the chunk and the spans they fell
   in; the share of the idle time that lies inside no program span; the
   ``randt.batch_chunk`` record against ``bench.traced`` (the shared clock);
-  the launches per step and the counters' own launches among them;
+  the launches per step and the counters' own launches among them; per
+  hand-written kernel of the LM loop and K2, the quantiles of its launches'
+  device times and of the card's idle time just before each, and the mean
+  device time of the launches that followed other work within 1 us against
+  those the card waited for;
 * ``lm``: the LM counters of the profiled chunks: per GNC round the
   distribution of the members' live iterations and the share of members that
   keep the round, and the per-layer readings ``lm_member_iters`` and
-  ``lm_batch_iters``.
+  ``lm_batch_iters``;
+* ``lm_graph``: per chunk, how many window solves ran eagerly, were
+  captured as CUDA graphs and were replayed (the registry's ``lm_graph.*``
+  counters, ``registration/solve_graph``).
 """
 
 from __future__ import annotations
@@ -38,6 +45,10 @@ import sys
 import time
 from collections import defaultdict
 
+GRAPH_COUNTERS = ("lm_graph.eager", "lm_graph.capture", "lm_graph.replay")
+KERNELS = ("linearize_kernel", "robust_cost_kernel", "chol_solve_kernel",
+           "topi_moments_kernel")
+QUANTILES = (0, 10, 50, 90, 100)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
@@ -80,6 +91,36 @@ def outside_ns(gaps, intervals) -> int:
     return int((g[:, 1] - g[:, 0]).sum() - covered)
 
 
+def kernel_times(work) -> dict:
+    """Per name of :data:`KERNELS`: its launches' device times (us) and the
+    card's idle time before each (from the end of the device work before
+    it), as quantiles, and the mean device time of the launches with under
+    1 us of idle before them against the others."""
+    import numpy as np
+
+    work = sorted(work, key=lambda e: e.start)
+    out = {}
+    for name in KERNELS:
+        dur, idle = [], []
+        for i, e in enumerate(work):
+            if name in e.name and i:
+                dur.append((e.end - e.start) / 1e3)
+                idle.append((e.start - max(p.end for p in work[max(0, i - 8):i])) / 1e3)
+        if not dur:
+            continue
+        dur, idle = np.asarray(dur), np.asarray(idle)
+        near = idle < 1.0
+        out[name] = dict(
+            launches=len(dur), us_quantiles=np.percentile(dur, QUANTILES).tolist(),
+            us_mean=float(dur.mean()),
+            idle_before_us_quantiles=np.percentile(idle, QUANTILES).tolist(),
+            after_work_within_1us=[int(near.sum()),
+                                   float(dur[near].mean()) if near.any() else None],
+            after_idle=[int((~near).sum()),
+                        float(dur[~near].mean()) if (~near).any() else None])
+    return out
+
+
 def traced_chunk(ev, span, c, recs, steps, rounds, iters) -> dict:
     """The gaps, clock and launches of one profiled chunk (module docstring)."""
     from benchmark import program, trace
@@ -115,6 +156,7 @@ def traced_chunk(ev, span, c, recs, steps, rounds, iters) -> dict:
         step_alloc=[(r.ids.get("t"), r.attrs) for r in recs
                     if r.name == "randt.frontend_step"],
         outputs_alloc=[r.attrs for r in recs if r.name == "randt.outputs_to_host"],
+        kernels=kernel_times(trace.device_work(ev, span)),
         gaps=top)
 
 
@@ -150,10 +192,12 @@ def main(argv=None) -> int:
     chunks = defaultdict(list)    # mode -> [(chunk record, the chunk's records)]
     profiled = []                 # (events, traced span, chunk index, records)
     lm = []                       # (live, kept) of the profiled chunks' solves
+    graph_counts = []             # (chunk, mode, lm_graph.* counted in it)
     for _ in range(args.rounds):
         for mode in ("off", "counters", "profiled"):
             c = run.chunk
             n0 = profiling.REGISTRY.n
+            g0 = {k: profiling.counter(k) for k in GRAPH_COUNTERS}
             if mode == "off":
                 run._step_chunk()
             elif mode == "counters":
@@ -177,8 +221,10 @@ def main(argv=None) -> int:
                 del prof
                 profiled.append((ev, trace.span(ev, "bench.traced"), c, recs))
                 lm.extend(program.lm_rounds(dict(span=(chunk.start, chunk.end))) or [])
-            print(f"chunk {c} {mode}: {(chunk.end - chunk.start) / 1e6 / steps:.1f} ms/step",
-                  flush=True)
+            graph = {k: profiling.counter(k) - g0[k] for k in GRAPH_COUNTERS}
+            graph_counts.append((c, mode, graph))
+            print(f"chunk {c} {mode}: {(chunk.end - chunk.start) / 1e6 / steps:.1f} ms/step, "
+                  f"{graph}", flush=True)
 
     # per-span host wall per step in the chunks stepped with tracing off
     by_name = defaultdict(list)
@@ -192,7 +238,8 @@ def main(argv=None) -> int:
            "modes": {k: {"ms_per_step": v, "median": statistics.median(v)}
                      for k, v in ms.items()},
            "untraced_span_ms_per_step": {k: statistics.median(v)
-                                         for k, v in sorted(by_name.items())}}
+                                         for k, v in sorted(by_name.items())},
+           "lm_graph": graph_counts}
 
     # every profiled chunk: gaps, clock, launches
     out["traced"] = [traced_chunk(ev, span, c, recs, steps, int(cfg.gnc_steps), iters)

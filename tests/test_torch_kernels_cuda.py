@@ -70,6 +70,14 @@ PyTorch is installed:
   launches each kernel as one sequence does, and each member has its
   single card run's tables and poses within ``tests/test_torch_batch.py``'s
   free-running bands.
+* The odometry window solve's CUDA graphs (``registration/solve_graph``),
+  on 26 frames of three drives in chunks of 8 (switches off, on, and on
+  with the IMU) and on one drive through ``run_odometry``: poses, records
+  and the carries at every frame boundary bitwise the run with every solve
+  eager; each replay bitwise the eager solve of that frame's own inputs,
+  with frames of one key answering differently; one capture per key (2, 3
+  and 4 existing window states), a replay for every later solve, and the
+  kernel counters the eager run's launches.
 * The indoor shapes (``indoor_config()``, the IMU on): K1 and K2 on a
   rendered 400 x 400 frame of 3 cm bins (k = 256), bitwise and within
   1e-5 of their scale as above; K3a/K3b on every LM iteration's pairs of an
@@ -1083,3 +1091,187 @@ def test_chol_solve_on_imu_window_systems(dev, indoor_inputs):
     print(f"K4 on {A.shape[0]} IMU-on window systems: kappa "
           f"{float(kappa.min()):.3g}..{float(kappa.max()):.3g}, within "
           f"{float(((x.double() - x64).abs() / bound).max()):.3f} of the bound")
+
+
+# ---- the LM solve's CUDA graphs (registration/solve_graph) ---------------------
+
+GRAPH_COUNTERS = ("lm_graph.eager", "lm_graph.capture", "lm_graph.replay")
+GRAPH_MATCHER = {"off": {}, "on": dict(use_pallas_linearize=True, use_pallas_chol=True),
+                 "imu": dict(use_imu=True, use_pallas_linearize=True,
+                             use_pallas_chol=True)}
+
+
+def graph_config(name):
+    """:func:`tiny_config` (a submap every 6 frames) with the matcher
+    switches of ``GRAPH_MATCHER[name]``."""
+    cfg = tiny_config()
+    kw = GRAPH_MATCHER[name]
+    if kw.get("use_imu"):
+        cfg = dataclasses.replace(cfg, use_imu=True)
+    return dataclasses.replace(cfg, matcher=dataclasses.replace(cfg.matcher, **kw))
+
+
+def graph_frames(seed, n_frames, device):
+    """A straight synthetic drive at :func:`tiny_config`'s sizes, with its
+    gyro readings."""
+    from randt_slam_torch.io import synthetic
+    from randt_slam_torch.pipeline import slam
+
+    seq = synthetic.generate(seed=seed, n_frames=n_frames, n_azimuths=64, n_bins=128,
+                             max_range=40.0, speed=3.0, dt=0.25, n_walls=40)
+    return slam.frames_from_arrays(seq.intensity, seq.azimuths, seq.ranges, seq.stamps,
+                                   imu_yaw=seq.imu_yaw, device=device)
+
+
+def graph_counts():
+    from randt_slam_torch.utils import profiling
+
+    return {k: profiling.counter(k) for k in GRAPH_COUNTERS}
+
+
+def _graph_caches():
+    """A graph cache class that keeps each call's key, inputs and answer,
+    and the list of the caches it made."""
+    from randt_slam_torch.registration import solve_graph
+
+    made = []
+
+    class Recording(solve_graph.SolveGraphs):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+            made.append(self)
+
+        def __call__(self, part, fn, args):
+            out = super().__call__(part, fn, args)
+            self.calls.append((solve_graph.key(part, args), fn,
+                               tuple(a.clone() for a in args),
+                               type(out)(*(o.clone() for o in out))))
+            return out
+
+    return Recording, made
+
+
+class _EagerSolves:
+    """A graph cache that solves every window eagerly."""
+
+    def __call__(self, part, fn, args):
+        return fn(*args)
+
+
+def _batched_chunks(cfg, frames, dev, chunk=8):
+    """Carries at every frame boundary and each chunk's outputs."""
+    from randt_slam_torch.parallel import batch
+    from randt_slam_torch.pipeline import frontend as F
+
+    B, T = frames.stamp.shape[:2]
+    scan = batch.make_batched_scan(cfg, np.zeros(3), device=dev)
+    carries = batch.init_batched_carry(cfg, B, device=dev)
+    snaps, outs = [], []
+    for lo in range(0, T, chunk):
+        fr = F.Frame(*(x[:, lo:lo + chunk] for x in frames))
+        carries, o = scan(carries, fr, on_frame=lambda t, c: snaps.append(c))
+        outs.append(o)
+    snaps.append(carries)
+    return snaps, outs
+
+
+def _tree_leaves(x):
+    if isinstance(x, (tuple, list)):
+        for v in x:
+            yield from _tree_leaves(v)
+    else:
+        yield x
+
+
+def _bitwise(a, b):
+    for x, y in zip(_tree_leaves(a), _tree_leaves(b), strict=True):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, y)
+        elif isinstance(x, np.ndarray):
+            assert np.array_equal(x, y)
+        else:
+            assert x == y
+
+
+def _graphed_then_eager(monkeypatch, run):
+    """``run()``, which makes its own graph cache, then ``run()`` with every
+    solve eager: (graph run, its cache, the graph counters' change, its
+    launches; eager run, its launches)."""
+    from randt_slam_torch.registration import solve_graph
+
+    recording, made = _graph_caches()
+    monkeypatch.setattr(solve_graph, "SolveGraphs", recording)
+    build.reset_launches()
+    before = graph_counts()
+    graphed = run()
+    torch.cuda.synchronize()
+    counted = {k: v - before[k] for k, v in graph_counts().items()}
+    launches = dict(build.LAUNCHES)
+    assert len(made) == 1
+    monkeypatch.setattr(solve_graph, "SolveGraphs", _EagerSolves)
+    build.reset_launches()
+    eager = run()
+    return graphed, made[0], counted, launches, eager, dict(build.LAUNCHES)
+
+
+def _check_graph_cache(rec, counted):
+    keys = [k for k, *_ in rec.calls]
+    first = {}
+    for i, k in enumerate(keys):
+        first.setdefault(k, i)
+    # one capture per key, after its first solve ran eagerly; a replay for
+    # every later solve
+    assert len(rec.graphs) == len(first)
+    assert counted == {"lm_graph.eager": len(first), "lm_graph.capture": len(first),
+                       "lm_graph.replay": len(keys) - len(first)}
+    assert sorted(k[1] for k in first) == [2, 3, 4]
+    # each replay answers, bitwise, as the eager solve does on that frame's
+    # own inputs; frames of one key answer differently (no stale buffer)
+    answers = {}
+    for i, (k, fn, args, out) in enumerate(rec.calls):
+        if i != first[k]:
+            _bitwise(out, fn(*args))
+            answers.setdefault(k, set()).add(out.params.cpu().numpy().tobytes())
+    assert max(len(v) for v in answers.values()) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(GRAPH_MATCHER))
+def test_batched_graph_path_is_the_eager_path(dev, name, monkeypatch):
+    """26 frames of three drives in chunks of 8 (five submaps): poses,
+    records and the carries at every frame boundary bitwise the eager run's;
+    the outputs held over a chunk are the eager run's, so no replay
+    overwrote them; the kernels count the eager run's launches."""
+    from randt_slam_torch.pipeline import frontend as F
+
+    cfg = graph_config(name)
+    T = 26
+    frames = F.Frame(*(torch.stack(x) for x in zip(
+        *[graph_frames(s, T, dev) for s in (3, 4, 5)])))
+    (g_snaps, g_outs), rec, counted, launches, (e_snaps, e_outs), e_launches = \
+        _graphed_then_eager(monkeypatch, lambda: _batched_chunks(cfg, frames, dev))
+    assert sum(int(np.sum(o.submap_finished)) for o in e_outs) >= 3 * 3
+    _bitwise(g_outs, e_outs)
+    assert len(g_snaps) == len(e_snaps) == T + 1
+    for a, b in zip(g_snaps, e_snaps):
+        _bitwise(a, b)
+    _check_graph_cache(rec, counted)
+    assert launches == e_launches
+    if GRAPH_MATCHER[name]:
+        m = cfg.matcher
+        assert launches["chol_solve"] == len(rec.calls) * m.gnc_steps * m.lm_max_iterations
+
+
+@pytest.mark.cuda
+def test_single_sequence_graph_path_is_the_eager_path(dev, monkeypatch):
+    from randt_slam_torch.pipeline import slam
+
+    cfg = graph_config("on")
+    fr = graph_frames(3, 26, dev)
+    graphed, rec, counted, launches, eager, e_launches = _graphed_then_eager(
+        monkeypatch, lambda: slam.run_odometry(cfg, fr, device=dev))
+    for f in dataclasses.fields(eager):
+        _bitwise(getattr(graphed, f.name), getattr(eager, f.name))
+    _check_graph_cache(rec, counted)
+    assert launches == e_launches

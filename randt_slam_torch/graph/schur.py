@@ -78,7 +78,6 @@ def _group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
-@profiling.span("randt.pgo_distributed")
 def optimize_distributed(g: PG.PoseGraph, cfg: GlobalFuserConfig, group):
     """Gauss-Newton with LM damping (:func:`pose_graph.lm_loop`, node 0
     fixed), the assembly sharded over the group's ranks by edges:
@@ -91,6 +90,11 @@ def optimize_distributed(g: PG.PoseGraph, cfg: GlobalFuserConfig, group):
     in another order from one call to the next).  Every rank runs the same
     step on the same sums.  ``group=None`` is one rank, no collective.
     Returns (poses, {"cost", "iterations"})."""
+    with mesh.rank_ids(group), profiling.span("randt.pgo_distributed"):
+        return _optimize_distributed(g, cfg, group)
+
+
+def _optimize_distributed(g: PG.PoseGraph, cfg: GlobalFuserConfig, group):
     g = _pad_edges(g, _group_size(group))
     lo, hi = mesh.shard_range(g.id_begin.shape[0], group)
     shard = PG.PoseGraph(g.poses, *(x[lo:hi] for x in g[1:]))
@@ -542,16 +546,16 @@ def optimize_loop(poses, g, lay: _Layout, cfg: GlobalFuserConfig, group=None):
     return poses, cost, it
 
 
-@profiling.span("randt.pgo_schur")
 def optimize_schur(g: PG.PoseGraph, cfg: GlobalFuserConfig, node_submap,
                    node_is_root, group=None):
     """Gauss-Newton via the submap Schur complement.  Gauge: the first ROOT
     is fixed.  With a group, the submaps are sharded over its ranks (module
     docstring); every rank returns the same poses.  Returns (poses,
     {"cost", "iterations"})."""
-    lay = _prepare(g, node_submap, node_is_root, group)
-    poses, cost, iters = optimize_loop(g.poses, g, lay, cfg, group)
-    return poses, {"cost": float(cost), "iterations": iters}
+    with mesh.rank_ids(group), profiling.span("randt.pgo_schur"):
+        lay = _prepare(g, node_submap, node_is_root, group)
+        poses, cost, iters = optimize_loop(g.poses, g, lay, cfg, group)
+        return poses, {"cost": float(cost), "iterations": iters}
 
 
 def optimize_auto(g: PG.PoseGraph, cfg: GlobalFuserConfig, node_submap=None,

@@ -15,7 +15,9 @@ latency is fixed, and fleet throughput scales with the batch.
 With a group (``parallel/mesh.py``, one process per card), rank r of W runs
 members ``[r B/W, (r+1) B/W)`` on its own card with no communication during
 the scan, and the outputs are gathered at its end, so every rank returns
-the whole batch's, as the JAX package's ``out_specs=P("data")``.
+the whole batch's, as the JAX package's ``out_specs=P("data")``.  A rank is
+given its own share of the frames (its frames live on its own card) or the
+whole batch's, of which it takes its share.
 
 No ScanContext descriptor is made (``with_descriptor=False``): a fleet
 throughput batch runs no loop pass per step, as in the JAX package.
@@ -23,13 +25,19 @@ throughput batch runs no loop pass per step, as in the JAX package.
 Each call of a scan function is a span ``randt.batch_chunk`` with the
 call's index as ``chunk`` (``utils/profiling``); the spans inside it carry
 the frame's index in the chunk as ``t``; ``randt.outputs_to_host`` holds the
-outputs' copy to the host and the host's wait for the device.
+outputs' copy to the host and the host's wait for the device.  With a group
+every span of a call carries the rank's index in the group as ``rank``, and
+the exchange of the outputs is a span of its own after ``randt.batch_chunk``
+ends, ``randt.gather_outputs`` (ids ``chunk`` and ``rank``), so that a rank's
+own work and its wait for the others stay apart; while counting, the
+counter ``gather.bytes`` adds the bytes each exchange gathers on the rank.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import runtime
 from ..config import SlamConfig
@@ -73,6 +81,8 @@ def _gather_outputs(outs: F.FrameOutput, group, device) -> F.FrameOutput:
     leaves = [np.ascontiguousarray(x) for x in _leaves(outs)]
     buf = np.concatenate([x.reshape(-1).view(np.uint8) for x in leaves])
     got = mesh.all_gather_cat(torch.from_numpy(buf).to(device), group).cpu().numpy()
+    if profiling.counting():
+        profiling.count("gather.bytes", got.nbytes)
     per_rank = got.reshape(-1, buf.size)
     cat, off = [], 0
     for x in leaves:
@@ -82,18 +92,36 @@ def _gather_outputs(outs: F.FrameOutput, group, device) -> F.FrameOutput:
     return _rebuild(outs, iter(cat))
 
 
+def _own_members(n_frames: int, n_carries: int, group) -> tuple[int, int]:
+    """``[lo, hi)`` of the frames' members that this rank steps: all of them
+    where the frames hold as many members as its carries (the rank's own
+    share), its share of the batch where they hold the group's whole batch
+    (W times that); any other count raises."""
+    if n_frames == n_carries:
+        return 0, n_frames
+    w = 1 if group is None else dist.get_world_size(group)
+    if n_frames != w * n_carries:
+        raise ValueError(f"frames of {n_frames} members for carries of {n_carries} "
+                         f"on a rank of {w}: give the rank's share or the whole batch")
+    return mesh.shard_range(n_frames, group)
+
+
 def make_batched_scan(cfg: SlamConfig, sensor_to_base, device=None, group=None):
     """Returns ``scan_fn(carries, frames, on_frame=None) -> (carries, outs)``
     over a (B, T, ...) frame batch on ``device`` (CUDA unless
     ``device="cpu"``): ``carries`` from :func:`init_batched_carry`,
-    ``frames`` a ``Frame`` of (B, T, ...) tensors (this rank's members
-    moved to the device once), ``outs`` a ``FrameOutput`` of numpy (B, T,
-    ...) arrays, all B members on every rank.  The carries passed in are
-    updated in place (the submap store) and must not be used again; they
-    stay this rank's.  ``on_frame(t, carries)`` is called as in
-    ``pipeline/slam.run_odometry``: before frame ``t`` is stepped.  With a
-    group, B must divide by its size.  ``scan_fn`` keeps the CUDA graphs of
-    its window solves (``registration/solve_graph``) while it lives."""
+    ``frames`` a ``Frame`` of (b, T, ...) tensors, ``outs`` a
+    ``FrameOutput`` of numpy (B, T, ...) arrays, all B members on every
+    rank.  Without a group b = B.  With a group of W ranks, b is the rank's
+    share B / W (its own frames, as many members as its carries) or the
+    whole batch B, of which the rank takes its share; any other b raises.
+    The rank's frames are moved to the device once per call (nothing moves
+    where they are there already).  The carries passed in are updated in
+    place (the submap store) and must not be used again; they stay this
+    rank's.  ``on_frame(t, carries)`` is called as in
+    ``pipeline/slam.run_odometry``: before frame ``t`` is stepped.
+    ``scan_fn`` keeps the CUDA graphs of its window solves
+    (``registration/solve_graph``) while it lives."""
     dev = runtime.resolve_device(device)
     s2b = torch.as_tensor(np.asarray(sensor_to_base, np.float32)).to(dev)
     graphs = solve_graph.SolveGraphs()
@@ -101,26 +129,26 @@ def make_batched_scan(cfg: SlamConfig, sensor_to_base, device=None, group=None):
 
     def scan_fn(carries: F.FrontendCarry, frames: F.Frame, on_frame=None):
         nonlocal calls
-        lo, hi = mesh.shard_range(frames.stamp.shape[0], group)
-        if carries.cur_pose.shape[0] != hi - lo:
-            raise ValueError(f"carries of {carries.cur_pose.shape[0]} members for "
-                             f"this rank's {hi - lo}")
-        with profiling.span("randt.batch_chunk", chunk=calls):
-            calls += 1
-            frames = F.Frame(*(x[lo:hi].to(dev) for x in frames))
-            outs = []
-            for t in range(frames.stamp.shape[1]):
-                if on_frame is not None:
-                    on_frame(t, carries)
-                fr = F.Frame(*(x[:, t] for x in frames))
-                with profiling.ids(t=t):
-                    carries, out = F.frontend_step(cfg, carries, fr, s2b,
-                                                   with_descriptor=False, graphs=graphs)
-                outs.append(out)
-            with profiling.span("randt.outputs_to_host"):
-                outs = slam.stack_outputs(outs, batch=hi - lo)
-        if group is not None:
-            outs = _gather_outputs(outs, group, dev)
+        lo, hi = _own_members(frames.stamp.shape[0], carries.cur_pose.shape[0], group)
+        chunk, calls = calls, calls + 1
+        with mesh.rank_ids(group):
+            with profiling.span("randt.batch_chunk", chunk=chunk):
+                frames = F.Frame(*(x[lo:hi].to(dev) for x in frames))
+                outs = []
+                for t in range(frames.stamp.shape[1]):
+                    if on_frame is not None:
+                        on_frame(t, carries)
+                    fr = F.Frame(*(x[:, t] for x in frames))
+                    with profiling.ids(t=t):
+                        carries, out = F.frontend_step(cfg, carries, fr, s2b,
+                                                       with_descriptor=False,
+                                                       graphs=graphs)
+                    outs.append(out)
+                with profiling.span("randt.outputs_to_host"):
+                    outs = slam.stack_outputs(outs, batch=hi - lo)
+            if group is not None:
+                with profiling.span("randt.gather_outputs", chunk=chunk):
+                    outs = _gather_outputs(outs, group, dev)
         return carries, outs
 
     return scan_fn

@@ -21,12 +21,14 @@ W ranks on one host::
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
 import torch.distributed as dist
 
 from .. import runtime
+from ..utils import profiling
 
 
 def init_distributed(coordinator_address: str | None = None,
@@ -80,6 +82,15 @@ def data_group(n_ranks: int | None = None):
     if not 1 <= n_ranks <= world:
         raise ValueError(f"{n_ranks} ranks asked for in a world of {world}")
     return dist.new_group(list(range(n_ranks)))
+
+
+def rank_ids(group):
+    """Give this process's rank in ``group`` as the id ``rank`` to every span
+    opened inside the block (``utils/profiling.ids``); without a group, no
+    id."""
+    if group is None:
+        return contextlib.nullcontext()
+    return profiling.ids(rank=dist.get_rank(group))
 
 
 def shard_range(n: int, group) -> tuple[int, int]:

@@ -32,6 +32,10 @@ its own.
   :data:`ALLOC_SPANS` keep the caching allocator's device mallocs, frees and
   retries over their extent as their ``attrs``.
 
+**Ranks.** Each process has its own ring; the sharded paths give their
+spans the process's rank as an id (``parallel/mesh.rank_ids``), and
+:func:`gather_records` brings every rank's records to one rank after a run.
+
 :class:`Profiler` aggregates the spans recorded after its creation by name
 (the CLI's ``profile``); the ring folds its records into every live
 ``Profiler`` before it overwrites them.  One thread: spans nest.
@@ -194,6 +198,31 @@ class span:
 def records(since: int = 0) -> list:
     """The span records in the ring (:class:`Record`), oldest first."""
     return REGISTRY.records(since)
+
+
+def gather_records(group=None, since: int = 0, dst: int = 0) -> list | None:
+    """After a run of ranks: every rank's ring records written at or after
+    its ``since``-th (:func:`records`), brought to rank ``dst`` of ``group``
+    (the default group when None) in rank order, each with its rank in the
+    group as the id ``rank``.  The ranks of one host share the clock
+    (``time.time_ns()``), so the records line up as they are.  Collective:
+    every rank of the group calls it, outside the timed steps.  Returns the
+    records on ``dst`` and None on the other ranks; without a process group,
+    this process's records as rank 0's."""
+    import torch.distributed as dist
+
+    mine = [tuple(r) for r in records(since)]
+    if not dist.is_initialized():
+        parts = [mine]
+    else:
+        me = dist.get_rank(group)
+        parts = [None] * dist.get_world_size(group) if me == dst else None
+        root = dst if group is None else dist.get_global_rank(group, dst)
+        dist.gather_object(mine, parts, dst=root, group=group)
+        if me != dst:
+            return None
+    return [Record(name, start, end, {**ids, "rank": rank}, attrs)
+            for rank, part in enumerate(parts) for name, start, end, ids, attrs in part]
 
 
 def count(name: str, n: int = 1) -> None:

@@ -35,6 +35,18 @@ What must hold, and why:
   ``make_batched_scan(mesh=data_mesh(2))``, ``test_torch_batch.py``'s
   tables rule and free-running bands.  A batch that does not split over
   the ranks raises.
+* rank-local frames, in both worlds: each rank given only its own
+  members' frames (two chunks of 3 of the batch's first 6 frames) returns
+  all 4 members in order, bit for bit the port's one-process B = 4 run,
+  and within the bands above of the JAX ``make_batched_scan(mesh=
+  data_mesh(4))`` on the same 6 frames; frames that are neither its share
+  nor the whole batch raise.  With
+  counting on, ``gather.bytes`` adds each chunk's gathered bytes once; the
+  rings gathered on rank 0 (``profiling.gather_records``) hold every
+  rank's spans with its rank (each rank's own spans carry it too), one
+  ``randt.gather_outputs`` per rank and chunk after its
+  ``randt.batch_chunk`` has ended, and on the shared clock no rank's
+  all-gather ends before the last rank has entered it.
 * one rank in this process (a gloo group of one): ``optimize_distributed``,
   ``optimize_schur``, ``optimize_auto`` and the batch bitwise equal to
   their unsharded calls.
@@ -83,6 +95,7 @@ SCHUR_GRAPHS = list(GRAPHS)
 # the sharded batch: (seed, first frame) per member, T frames each
 MEMBERS = ((3, 0), (4, 0), (3, 3), (4, 3))
 T = 22
+LOCAL_FRAMES = 6   # the rank-local frames' run: two chunks of 3
 CHILD_TIMEOUT = 300
 
 _CHILD = textwrap.dedent("""
@@ -161,6 +174,51 @@ _CHILD = textwrap.dedent("""
             res["odd_batch_raises"] = False
         except ValueError:
             res["odd_batch_raises"] = True
+    if spec.get("local"):
+        # rank-local frames: each rank is given its own members' frames
+        # alone, in two chunks, counting, and the rings go to rank 0
+        from randt_slam_torch.utils import profiling
+        b = np.load(spec["local"])
+        B, n = len(b["intensity"]), spec["local_frames"]
+        lo, hi = mesh.shard_range(B, group)
+        own = [slam.frames_from_arrays(b["intensity"][i, :n], b["azimuths"], b["ranges"],
+                                       b["stamps"][i, :n], device="cpu") for i in range(lo, hi)]
+        own = F.Frame(*(torch.stack(x) for x in zip(*own)))
+        cfg = synthetic_config()
+        scan = batch.make_batched_scan(cfg, np.zeros(3), device="cpu", group=group)
+        carries = batch.init_batched_carry(cfg, B, device="cpu", group=group)
+        since, bytes0 = profiling.REGISTRY.n, profiling.counter("gather.bytes")
+        chunks, half = [], n // 2
+        with profiling.tracing():
+            for c in range(2):
+                carries, outs = scan(carries, F.Frame(*(x[:, c * half:(c + 1) * half]
+                                                        for x in own)))
+                chunks.append(outs)
+        res["gather_bytes"] = profiling.counter("gather.bytes") - bytes0
+        res["gather_bytes_want"] = sum(x.nbytes for o in chunks for x in batch._leaves(o))
+        def cat(xs):  # the chunks' outputs joined along the frames
+            if xs[0] is None:
+                return None
+            if isinstance(xs[0], tuple):
+                return type(xs[0])(*(cat(list(y)) for y in zip(*xs)))
+            return np.concatenate(xs, axis=1)
+        flat(cat(chunks), "local")
+        res["spans_carry_rank"] = all(r.ids.get("rank") == rank
+                                      for r in profiling.records(since))
+        try:  # neither the rank's share nor the whole batch
+            scan(carries, F.Frame(*(torch.cat([x, x[:1]]) for x in own)))
+            res["local_odd_raises"] = False
+        except ValueError:
+            res["local_odd_raises"] = True
+        recs = profiling.gather_records(group, since=since)
+        if rank == 0:
+            res["rec.name"] = np.array([r.name for r in recs])
+            for k in ("rank", "chunk"):
+                res[f"rec.{k}"] = np.array([r.ids.get(k, -1) for r in recs])
+            res["rec.start"] = np.array([r.start for r in recs], np.int64)
+            res["rec.end"] = np.array([r.end for r in recs], np.int64)
+        else:
+            res["rec.none"] = recs is None
     np.savez(os.path.join(spec["out"], f"rank{rank}.npz"), **res)
     dist.destroy_process_group()
 """)
@@ -253,13 +311,15 @@ def worlds(tmp_path_factory):
         graphs[f"schur.{name}.node_submap"] = ns
         graphs[f"schur.{name}.node_is_root"] = nr
     np.savez(os.path.join(d, "graphs.npz"), **graphs)
-    spec = dict(graphs=os.path.join(d, "graphs.npz"), schur=SCHUR_GRAPHS)
-    four = _spawn(4, dict(spec, schur=[]), os.path.join(d, "w4"))  # its cases: dense, collectives
+    seqs = [synthetic.generate(seed=s, n_frames=T + 3, n_azimuths=256, n_bins=256,
+                               speed=4.0, dt=0.25) for s in (3, 4)]
+    arrays = _member_arrays(seqs)
+    np.savez(os.path.join(d, "batch.npz"), **arrays)
+    spec = dict(graphs=os.path.join(d, "graphs.npz"), schur=SCHUR_GRAPHS,
+                local=os.path.join(d, "batch.npz"), local_frames=LOCAL_FRAMES)
+    # the four ranks' cases: dense, collectives, rank-local frames
+    four = _spawn(4, dict(spec, schur=[]), os.path.join(d, "w4"))
     try:
-        seqs = [synthetic.generate(seed=s, n_frames=T + 3, n_azimuths=256, n_bins=256,
-                                   speed=4.0, dt=0.25) for s in (3, 4)]
-        arrays = _member_arrays(seqs)
-        np.savez(os.path.join(d, "batch.npz"), **arrays)
         two = _spawn(2, dict(spec, batch=os.path.join(d, "batch.npz")),
                      os.path.join(d, "w2"))
     except BaseException:
@@ -284,6 +344,17 @@ def worlds(tmp_path_factory):
         _, outs = jB.make_batched_scan(jcfg, jnp.zeros(3), mesh=data_mesh(2))(
             jB.init_batched_carry(jcfg, len(MEMBERS)), frames)
         ref["batch"] = jax.tree.map(np.asarray, outs)
+        _, outs = jB.make_batched_scan(jcfg, jnp.zeros(3), mesh=data_mesh(4))(
+            jB.init_batched_carry(jcfg, len(MEMBERS)),
+            jax.tree.map(lambda x: x[:, :LOCAL_FRAMES], frames))
+        ref["local_jax"] = jax.tree.map(np.asarray, outs)
+        local = tF.Frame(*(torch.stack(x) for x in zip(*(
+            tS.frames_from_arrays(arrays["intensity"][b, :LOCAL_FRAMES], arrays["azimuths"],
+                                  arrays["ranges"], arrays["stamps"][b, :LOCAL_FRAMES],
+                                  device="cpu") for b in range(len(MEMBERS))))))
+        tcfg = t_cfg()
+        ref["local"] = tB.make_batched_scan(tcfg, np.zeros(3), device="cpu")(
+            tB.init_batched_carry(tcfg, len(MEMBERS), device="cpu"), local)[1]
     finally:
         res = {4: _join(four, os.path.join(d, "w4")), 2: _join(two, os.path.join(d, "w2"))}
     return res, ref, arrays
@@ -380,21 +451,70 @@ def test_sharded_batch_members_are_single_runs(worlds):
                 np.testing.assert_array_equal(a, c)
 
 
-def test_sharded_batch_matches_jax_batch(worlds):
-    res, ref, arrays = worlds
-    outs = _unflat(res[2][0], "sharded")
+def _hold_to_jax(outs, jax_outs, gt):
+    """Every member of the port's batch ``outs`` against the JAX package's:
+    ``test_torch_batch.py``'s tables rule and free-running bands."""
     for b in range(len(MEMBERS)):
-        mine, want = _member(outs, b), _member(ref["batch"], b)
+        mine, want = _member(outs, b), _member(jax_outs, b)
         t_tab, j_tab = tS._unstack_outputs(mine), tS._unstack_outputs(want)
         for k in TABLES:
             np.testing.assert_array_equal(t_tab[k], j_tab[k], err_msg=f"{b} {k}")
         np.testing.assert_array_equal(mine.rejected, want.rejected)
         np.testing.assert_array_equal(mine.submap_finished, want.submap_finished)
-        gt = arrays["gt"][b]
-        gap = abs(formats.ate(mine.odom_pose, gt) - formats.ate(want.odom_pose, gt))
+        gap = abs(formats.ate(mine.odom_pose, gt[b]) - formats.ate(want.odom_pose, gt[b]))
         assert gap < FREE_ATE, (b, gap)
         d = np.abs(mine.odom_pose - want.odom_pose)
         assert d[:, 2].max() <= FREE_ANG and d[:, :2].max() <= FREE_POS, (b, d.max(axis=0))
+
+
+def test_sharded_batch_matches_jax_batch(worlds):
+    res, ref, arrays = worlds
+    _hold_to_jax(_unflat(res[2][0], "sharded"), ref["batch"], arrays["gt"])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_rank_local_frames_give_the_one_process_batch(worlds, world):
+    """Each rank given only its own members' frames: every rank returns all
+    members in order, each bit for bit the one-process batch's and within
+    the JAX package's bands of its batch on the same frames; frames that
+    are neither the rank's share nor the whole batch raise."""
+    res, ref, arrays = worlds
+    want = jax.tree.leaves(ref["local"])
+    for r in res[world]:
+        assert bool(r["local_odd_raises"])
+        got = _unflat(r, "local")
+        assert got.odom_pose.shape[:2] == (len(MEMBERS), LOCAL_FRAMES)
+        for a, b in zip(jax.tree.leaves(got), want, strict=True):
+            np.testing.assert_array_equal(a, b)
+        _hold_to_jax(got, ref["local_jax"], arrays["gt"][:, :LOCAL_FRAMES])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_rings_reach_rank_0_with_their_rank_on_one_clock(worlds, world):
+    res = worlds[0][world]
+    assert all(bool(r["rec.none"]) for r in res[1:])   # the records are rank 0's alone
+    assert all(bool(r["spans_carry_rank"]) for r in res)  # in a group every span has it
+    r0 = res[0]
+    name, rank, chunk = r0["rec.name"], r0["rec.rank"], r0["rec.chunk"]
+    start, end = r0["rec.start"], r0["rec.end"]
+    assert sorted(set(rank.tolist())) == list(range(world))
+    assert (name == "randt.frontend_step").sum() == world * LOCAL_FRAMES
+    for c in (0, 1):
+        gather = (name == "randt.gather_outputs") & (chunk == c)
+        assert sorted(rank[gather].tolist()) == list(range(world))
+        # no rank's all-gather ends before every rank has entered it: the
+        # ranks' clocks line up
+        assert start[gather].max() <= end[gather].min()
+        for k in range(world):  # the chunk's own work ends before its exchange
+            own = (name == "randt.batch_chunk") & (chunk == c) & (rank == k)
+            assert own.sum() == 1
+            assert end[own][0] <= start[gather & (rank == k)][0]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_gather_bytes_count_each_chunk_once(worlds, world):
+    for r in worlds[0][world]:
+        assert int(r["gather_bytes"]) == int(r["gather_bytes_want"]) > 0
 
 
 @pytest.fixture

@@ -1,7 +1,9 @@
 """The port's span and counter registry (``randt_slam_torch/utils/profiling``):
 the spans' clock against ``torch.profiler``'s, what a span costs with
 tracing off, the ring's bound, the LM solve's convergence counters against
-a plain early-exit loop, and the batched scan's spans and ids."""
+a plain early-exit loop, the batched scan's spans and ids, and the ring
+gather of a process without a group (the worlds of ranks are in
+``test_torch_distributed.py``)."""
 
 import collections
 import time
@@ -128,6 +130,20 @@ def test_the_ring_is_bounded_and_keeps_the_newest(monkeypatch):
     with P.span("randt.s0"):
         pass
     assert prof.report()["randt.s0"]["count"] == 8
+
+
+def test_gather_records_without_a_group_gives_this_process_as_rank_0(reg):
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    with P.span("randt.before", chunk=1):
+        pass
+    since = reg.n
+    with P.span("randt.after", chunk=2, rank=5):
+        pass
+    got = P.gather_records(since=since)
+    assert [(r.name, r.ids) for r in got] == [("randt.after", {"chunk": 2, "rank": 0})]
+    assert got[0][1:3] == reg.records()[-1][1:3]
 
 
 def test_kernel_counters_are_launches_view(reg):

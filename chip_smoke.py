@@ -29,8 +29,11 @@ Phases (any failed check raises and the script exits non-zero):
    nvcc, all sources at once;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of one Oxford-geometry frame (400 azimuths x 1157 range bins), on seeded
-   random inputs and on a rendered frame (K3a/K3b/K4: the inputs of that
-   frame's LM solve, captured on the switches-on path; K5: the frame's
+   random inputs and on a rendered frame (K3a/K3b/K4 and the LM
+   iteration's own kernels lm_assemble, lm_trial and lm_accept: the inputs
+   of every LM iteration of that frame's solve, captured on the
+   switches-on path, the last three within ``LM_REL`` of plain, the trial
+   bitwise, the acceptance's flags exact where decided; K5: the frame's
    filtered points and cluster ids, and its entry point ``from_points``
    driven once with the counts at 0); its time (CUDA events), the plain
    version's, a one-call PyTorch yardstick where one exists and the least
@@ -43,9 +46,10 @@ Phases (any failed check raises and the script exits non-zero):
    and K1's, K2's, K3a's, K3b's, K4's and K5's times in their earlier
    designs (PERF.md); then K1 to K4 again at phase 13's indoor shapes: K1
    and K2 on frame 10 of phase 13's drive (400 x 400 bins of 3 cm, 256
-   kept cells), K3a/K3b/K4 on the captured inputs of that frame's IMU-on
-   window solve at ``indoor_config()`` (the first 11 frames on the
-   switches-on path, the bias column free at the reference's weight);
+   kept cells), K3a/K3b/K4 and the LM iteration's kernels on the captured
+   inputs of that frame's IMU-on window solve at ``indoor_config()`` (the
+   first 11 frames on the switches-on path, the bias column free at the
+   reference's weight);
 4. per odometry path, ``run_odometry`` over rendered frames of that
    geometry (40 with the switches on, 30 off): exact launch counts (K1 and K2 once per frame; per
    ``estimate_window`` call K3a and K4 gnc_steps x lm_max_iterations times
@@ -140,8 +144,10 @@ Phases (any failed check raises and the script exits non-zero):
    and its ATE against its rendered ground truth within the band below;
    then K1, K2, K3a, K3b and K4 on one frame's batched inputs of the
    largest batch against their batched plain versions (the tolerances of
-   phase 3), B = 1 bitwise equal to the unbatched launch, and their times
-   and bounds at that batch;
+   phase 3), B = 1 bitwise equal to the unbatched launch, the LM
+   iteration's kernels on every iteration of that frame's batched solve
+   (member 0 bitwise its window's launch alone), and their times and
+   bounds at that batch;
 12. multi-device: the script re-runs itself as the ranks of a world
    (``--md-rank``; the kernels were built once, in phase 2), one rank per
    card under NCCL and, on one card, a 2-rank gloo world whose ranks share
@@ -252,6 +258,10 @@ FP32_FLOPS = 67e12          # H100 SXM, non-tensor float32, published
 CAPTURE_FRAME = 10          # the frame whose LM-solve inputs K3a/K3b/K4 check
 SWITCHES_ON = {"matcher.use_pallas_linearize": True,
                "matcher.use_pallas_chol": True}
+# the LM iteration's own kernels (ops/lm_step): wrappers and kernel names
+LM_WRAPPERS = ("assemble_cuda", "trial_cuda", "accept_cuda")
+LM_KERNELS = ("lm_assemble", "lm_trial", "lm_accept")
+LM_REL = 1e-5   # their sums against plain, relative to each sum's scale
 # float operations per pair, counted from csrc/ndt_linearize.cu with sqrt,
 # division and powf as one each: the pair math (residual, S^-1 d, dS/dtheta)
 # ~130, the Jacobian, weight and the ten sums ~70 more for K3a; the residual
@@ -525,18 +535,25 @@ def frame_inputs(cfg, scan_np, az, ranges, dev):
     return k1, (values, ids, num, cfg.capacity.max_scan_cells), k5
 
 
-def device_kernels(fn):
+def device_kernels(fn, tries=3):
     """The device kernels one call of ``fn`` launches, as (name, count)
-    pairs from a ``torch.profiler`` trace."""
+    pairs from a ``torch.profiler`` trace.  A trace with no device event at
+    all is taken again, up to ``tries`` traces: the profiler now and then
+    delivers none for a window this short (once in phase 13's K1 check,
+    after it had read phase 3's).  A call that launches nothing reads
+    empty every time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows, _, _ = trace_rows(prof.profiler.kineto_results.events())
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows, _, _ = trace_rows(prof.profiler.kineto_results.events())
+        if rows:
+            break
     return [(name, n) for _, n, name in rows]
 
 
@@ -736,24 +753,52 @@ def check_k5(k5_sets, entry, cfg, dev, per_call):
 @contextlib.contextmanager
 def spying_solves(frame):
     """Keep the K3a inputs of every LM iteration of frame ``frame`` (its
-    pair packs, slot poses, mu and NDT scale) and the damped systems K4
-    solves there, on the switches-on path run inside the block; yields
-    (now, lin, chol): the caller's ``on_frame`` sets ``now[0]`` to the
-    frame about to be stepped.  The solve of frame ``frame`` runs eagerly:
-    a replayed CUDA graph of it would call no kernel wrapper."""
+    pair packs, slot poses, mu and NDT scale), the damped systems K4
+    solves there and the inputs of the LM iteration's own kernels, on the
+    switches-on path run inside the block; yields (now, lin, chol, steps):
+    the caller's ``on_frame`` sets ``now[0]`` to the frame about to be
+    stepped.  The solve of frame ``frame`` runs eagerly: a replayed CUDA
+    graph of it would call no kernel wrapper.  On the card an iteration's
+    K3a reads the slot poses' [tx, ty, cos, sin] (``window.window_loop``):
+    its inputs are kept when ``lm_assemble`` takes its blocks, with the
+    poses of the parameters it assembles at.  ``steps`` holds, per call of
+    ``lm_assemble``, ``lm_trial`` and ``lm_accept``, (wrapper name, the
+    solve's ``window.WindowAux``, the other arguments, cloned before the
+    call)."""
+    import torch
+
+    from randt_slam_torch.ops import lm_step
     from randt_slam_torch.ops import ndt_linearize as NL
     from randt_slam_torch.ops import small_chol
-    from randt_slam_torch.registration import solve_graph
+    from randt_slam_torch.registration import solve_graph, window
 
-    now, lin, chol = [-1], [], []
-    orig_lin, orig_chol = NL.linearize, small_chol.chol_solve
+    now, lin, chol, steps, pending, auxes = [-1], [], [], [], [], []
+    orig_lin, orig_chol = NL.linearize_cuda, small_chol.chol_solve_cuda
+    orig_aux = window.window_aux
+    orig_step = {n: getattr(lm_step, n) for n in LM_WRAPPERS}
     graphs = solve_graph.SolveGraphs.__call__
 
-    def spy_lin(poses, mu, ndt_scale, packed, *a, **k):
+    def spy_lin(pose4, mu, ndt_scale, packed, *a, **k):
+        out = orig_lin(pose4, mu, ndt_scale, packed, *a, **k)
         if now[0] == frame:
-            lin.append((poses.clone(), mu.clone(), ndt_scale.clone(),
-                        tuple(x.clone() for x in packed)))
-        return orig_lin(poses, mu, ndt_scale, packed, *a, **k)
+            pending[:] = [(mu.clone(), ndt_scale.clone(), tuple(x.clone() for x in packed))]
+        return out
+
+    def spy_aux(*a, **k):
+        auxes[:] = [orig_aux(*a, **k)]
+        return auxes[0]
+
+    def _fresh(a):
+        return tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in a)
+
+    def spy_step(name):
+        def wrapped(win, *a):
+            if now[0] == frame:
+                if name == "assemble_cuda" and pending:
+                    lin.append((window.slot_poses(a[2]).clone(), *pending.pop()))
+                steps.append((name, auxes[0], _fresh(a)))
+            return orig_step[name](win, *a)
+        return wrapped
 
     def spy_chol(A, b):
         if now[0] == frame:
@@ -763,28 +808,38 @@ def spying_solves(frame):
     def solve(self, part, fn, args):
         return fn(*args) if now[0] == frame else graphs(self, part, fn, args)
 
-    NL.linearize, small_chol.chol_solve = spy_lin, spy_chol
+    NL.linearize_cuda, small_chol.chol_solve_cuda = spy_lin, spy_chol
+    window.window_aux = spy_aux
+    for n in LM_WRAPPERS:
+        setattr(lm_step, n, spy_step(n))
     solve_graph.SolveGraphs.__call__ = solve
     try:
-        yield now, lin, chol
+        yield now, lin, chol, steps
     finally:
-        NL.linearize, small_chol.chol_solve = orig_lin, orig_chol
+        NL.linearize_cuda, small_chol.chol_solve_cuda = orig_lin, orig_chol
+        window.window_aux = orig_aux
+        for n, fn in orig_step.items():
+            setattr(lm_step, n, fn)
         solve_graph.SolveGraphs.__call__ = graphs
     if not lin or len(chol) != len(lin):
         raise AssertionError(f"captured {len(lin)} linearizations and {len(chol)} "
                              f"solves in frame {frame}")
+    if [n for n, _, _ in steps] != list(LM_WRAPPERS) * len(lin):
+        raise AssertionError(f"frame {frame}: {len(steps)} calls of the LM iteration's "
+                             f"kernels, expected {len(LM_WRAPPERS)} after each of its "
+                             f"{len(lin)} linearizations")
 
 
 def capture_solve_inputs(cfg, frames, dev, frame):
     """Run ``frames`` on the switches-on path, keeping what
     :func:`spying_solves` keeps of ``frame``.  Returns the result and the
-    captured inputs."""
+    captured inputs (lin, chol, steps)."""
     from randt_slam_torch.pipeline import slam
 
-    with spying_solves(frame) as (now, lin, chol):
+    with spying_solves(frame) as (now, lin, chol, steps):
         res = slam.run_odometry(cfg, frames, device=dev,
                                 on_frame=lambda t, c: now.__setitem__(0, t))
-    return res, lin, chol
+    return res, lin, chol, steps
 
 
 def check_k3(k3_sets, cfg, dev, earlier_us=(K3A_ONE_BLOCK_US, K3B_ONE_BLOCK_US)):
@@ -972,6 +1027,186 @@ def check_k4(systems, dev, earlier_us=K4_ONE_BLOCK_US):
     return dict(max_abs_err=float((x - xp).abs().max()), bound_ms=bd, bound_by=by, **t)
 
 
+def check_lm_assemble(aux, Hj, gj, p, lam):
+    """lm_assemble against its plain version: dscale within LM_REL of
+    itself (the diagonal is a sum of positive terms); A within LM_REL of
+    1 + |A| (after the Jacobi scaling an entry off the diagonal is at most
+    1 by Cauchy-Schwarz, 1 + lam on it); rhs within LM_REL of its scale,
+    |rhs| + |r_aux| + |g_ndt| dscale (Cauchy-Schwarz again: |J_a . r| <=
+    |J_a| |r|); two launches bitwise.  Returns (the plain (A, rhs,
+    dscale), the largest |kernel - plain|)."""
+    import torch
+
+    from randt_slam_torch.ops import lm_step as L
+    from randt_slam_torch.registration import window as Wn
+
+    out = L.assemble_cuda(aux.kern, Hj, gj, p, lam)
+    again = L.assemble_cuda(aux.kern, Hj, gj, p, lam)
+    plain = Wn.assemble_plain(aux, Hj, gj, p, lam)
+    (A, rhs, ds), (Ap, rhsp, dsp) = out, plain
+    g_ndt = torch.zeros_like(p).index_put(aux.g_at, gj.abs() * aux.af_blk,
+                                          accumulate=True)
+    r_aux = torch.sqrt(Wn.aux_cost(aux, p))[..., None]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError("lm_assemble: two launches are not bitwise identical")
+    for what, a, b, scale in (("dscale", ds, dsp, dsp), ("A", A, Ap, 1 + Ap.abs()),
+                              ("rhs", rhs, rhsp, rhsp.abs() + r_aux + g_ndt * dsp)):
+        if not bool(((a - b).abs() <= LM_REL * scale).all()):
+            raise AssertionError(f"lm_assemble: {what} differs from plain by "
+                                 f"{float((a - b).abs().max()):.3e}, beyond {LM_REL} "
+                                 f"of its scale")
+    return plain, max(float((a - b).abs().max()) for a, b in zip(out, plain))
+
+
+def check_lm_trial(aux, p, x, ds):
+    """lm_trial against its plain version: the trial bitwise (both round op
+    by op), its slot poses within 1e-6, the norms within LM_REL of
+    themselves.  Returns (the plain (trial, slot poses, |delta|, |p *
+    active|), the largest |kernel - plain|)."""
+    import torch
+
+    from randt_slam_torch.ops import lm_step as L
+    from randt_slam_torch.registration import window as Wn
+
+    k = L.trial_cuda(aux.kern, p, x, ds)
+    pl = Wn.trial_plain(aux, p, x, ds)
+    torch.cuda.synchronize()
+    if not torch.equal(k[0], pl[0]):
+        raise AssertionError("lm_trial: the trial is not bitwise plain's")
+    if not bool(((k[1] - pl[1]).abs() <= 1e-6).all()):
+        raise AssertionError(f"lm_trial: slot poses off plain by "
+                             f"{float((k[1] - pl[1]).abs().max()):.3e}")
+    for a, b in zip(k[2:], pl[2:]):
+        if not bool(((a - b).abs() <= LM_REL * b).all()):
+            raise AssertionError(f"lm_trial: a norm off plain by "
+                                 f"{float((a - b).abs().max()):.3e}")
+    return pl, max(float((a - b).abs().max()) for a, b in zip(k, pl))
+
+
+def check_lm_accept(aux, rho, trial, dnorm, pnorm, ndt_scale, tol, ftol, p, c, lam,
+                    done, live):
+    """lm_accept against its plain version on clones of the state.  Where
+    the cost test, the function tolerance and the step tolerance are
+    decided by more than LM_REL of their sides (the kernel's trial cost is
+    another sum of the same terms), the flags are exact: done, lam and p
+    bitwise, c the trial cost within LM_REL of itself where it was taken
+    and bitwise else; live is exact everywhere and the slot poses within
+    1e-6.  Returns (the share of members decided, the largest |kernel -
+    plain| of c and the slot poses where decided)."""
+    import torch
+
+    from randt_slam_torch.ops import lm_step as L
+    from randt_slam_torch.registration import window as Wn
+
+    st = [t.clone() for t in (p, c, lam, done)] + [None if live is None else live.clone()]
+    kp, kc, klam, kdone, kpose = L.accept_cuda(aux.kern, rho, trial, dnorm, pnorm,
+                                               ndt_scale, tol, ftol, *st)
+    live_p = None if live is None else live.clone()
+    pp, pc, plam, pdone, ppose = Wn.accept_plain(aux, rho, trial, dnorm, pnorm, ndt_scale,
+                                                 tol, ftol, p, c, lam, done, live_p)
+    c_new = 0.5 * (ndt_scale * rho.sum(-1) + Wn.aux_cost(aux, trial))
+    bar = tol * (pnorm + tol)
+    # (a step of exactly 0, where nothing is active, is decided too)
+    d = (((c - c_new).abs() > LM_REL * c.abs())
+         & (((c - c_new) - ftol * c).abs() > LM_REL * c.abs())
+         & (((dnorm - bar).abs() > LM_REL * bar) | (dnorm == 0)))
+    torch.cuda.synchronize()
+    if not (kp is st[0] and kc is st[1] and klam is st[2] and kdone is st[3]):
+        raise AssertionError("lm_accept: the state was not updated in place")
+    if live is not None and not torch.equal(st[4], live_p):
+        raise AssertionError("lm_accept: the live counter differs from plain")
+    if not (torch.equal(kdone[d], pdone[d]) and torch.equal(klam[d], plam[d])
+            and torch.equal(kp[d], pp[d])):
+        raise AssertionError("lm_accept: done, lam or p differ from plain where decided")
+    took = d & ~done & (c_new < c)
+    if not (torch.equal(kc[d & ~took], pc[d & ~took])
+            and bool(((kc[took] - pc[took]).abs() <= LM_REL * pc[took]).all())):
+        raise AssertionError("lm_accept: the cost differs from plain where decided")
+    if not bool(((kpose[d] - ppose[d]).abs() <= 1e-6).all()):
+        raise AssertionError("lm_accept: slot poses off plain where decided")
+    err = max([float((kc[d] - pc[d]).abs().max()), float((kpose[d] - ppose[d]).abs().max())]
+              if bool(d.any()) else [0.0])
+    return float(d.float().mean()), err
+
+
+def lm_step_bytes(name, B, W):
+    """The least ``name`` must move for B windows of W transitions: each
+    input read once (float32; done 1 B and live 4 B a member), the
+    constants once, each output written once."""
+    P = (W + 1) * 9
+    if name == "lm_assemble":  # Hj, gj, p, dts, imu, lam; sqrt_info, valid, active; A, rhs, dscale
+        return 4 * (B * (12 * W + P + 2 * W + 1) + 64 + 10 * W + P + B * (P * P + 2 * P))
+    if name == "lm_trial":  # p, x, dscale; active, angle; trial, slot poses, two norms
+        return 4 * (3 * B * P + 2 * P + B * (P + 4 * W + 2))
+    # rho, trial, dnorm, pnorm, ndt_scale, dts, imu, p, c, lam; sqrt_info,
+    # valid; p, c, lam, slot poses; done and live read and written
+    return 4 * (B * (3 * W + 2 * P + 5) + 64 + 10 * W + B * (P + 2 + 4 * W)) + 10 * B
+
+
+def check_lm_step(steps, label):
+    """The LM iteration's own kernels on every call that one window solve
+    made of them (:func:`spying_solves`' ``steps``), each against its plain
+    version (:func:`check_lm_assemble`, :func:`check_lm_trial`,
+    :func:`check_lm_accept`: at least one acceptance decided); with a batch,
+    member 0 of each launch bitwise the launch of its window alone.  On the
+    last iteration's inputs, each kernel's time (CUDA events), its plain
+    version's and the least time its bytes take.  Returns {kernel: record}."""
+    import torch
+
+    from randt_slam_torch.ops import lm_step as L
+    from randt_slam_torch.registration import window as Wn
+
+    checks = dict(zip(LM_WRAPPERS, (check_lm_assemble, check_lm_trial, check_lm_accept)))
+    plains = dict(zip(LM_WRAPPERS, (Wn.assemble_plain, Wn.trial_plain, Wn.accept_plain)))
+    err, decided, last = dict.fromkeys(LM_WRAPPERS, 0.0), [], {}
+    for name, aux, a in steps:
+        share, e = checks[name](aux, *a)
+        if name == "accept_cuda":
+            decided.append(share)
+        err[name], last[name] = max(err[name], e), (aux, a)
+    if not max(decided) > 0:
+        raise AssertionError(f"{label}: no acceptance of the {len(decided)} LM iterations "
+                             f"decided by more than {LM_REL}")
+
+    def fresh(a):
+        return tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in a)
+
+    out = {}
+    for (wrapper, (aux, a)), kname in zip(last.items(), LM_KERNELS):
+        kernel, win = getattr(L, wrapper), aux.kern
+        lead, W = aux.lead, aux.W
+        B = lead[0] if lead else 1
+        member = ""
+        if lead:
+            whole = kernel(win, *fresh(a))
+            alone = kernel(win._replace(dts=win.dts[0].contiguous(),
+                                        imu_meas=win.imu_meas[0].contiguous()),
+                           *(x[0].clone() if isinstance(x, torch.Tensor) else x for x in a))
+            torch.cuda.synchronize()
+            if not all(torch.equal(x[0], y) for x, y in zip(whole, alone)):
+                raise AssertionError(f"{kname}: member 0 of the batch of {B} differs "
+                                     f"from its window's launch alone")
+            member = ", member 0 bitwise its launch alone"
+        args = fresh(a)
+        t = dict(ms=device_ms(lambda: kernel(win, *args)),
+                 plain_ms=device_ms(lambda: plains[wrapper](aux, *a[:-1], None)
+                                    if wrapper == "accept_cuda" else plains[wrapper](aux, *a)),
+                 library_ms=None)
+        nbytes = lm_step_bytes(kname, B, W)
+        bd, by = bound_ms(nbytes, 0)
+        out[kname] = dict(max_abs_err=err[wrapper], bound_ms=bd, bound_by=by, **t)
+        print(f"{kname} ({label}, B={B}, W={W}): within LM_REL {LM_REL} of plain on "
+              f"{len(decided)} LM iterations (largest |kernel - plain| "
+              f"{err[wrapper]:.3e}){member}; kernel {t['ms'] * 1e3:.2f} us, plain "
+              f"{t['plain_ms'] * 1e3:.2f} us, no one-call library yardstick, bound "
+              f"{bd * 1e3:.4f} us ({by}, {nbytes} B)", flush=True)
+    print(f"lm_accept ({label}): flags exact where decided, on "
+          f"{100 * float(np.mean(decided)):.1f}% of the members over the iterations "
+          f"(at least one iteration asked)", flush=True)
+    return out
+
+
 def trace_rows(events):
     """Sum a profiler trace's raw events (``kineto_results.events()``):
     device rows sorted by device time as (us, count, name), device busy us,
@@ -1115,16 +1350,19 @@ def expected_launches(cfg, scans, solves):
     candidates) and ``solves`` window solves: K1 and K2 once per scan; per
     solve, on the switches-on path, K3a and K4 gnc_steps x
     lm_max_iterations times and K3b 2 + gnc_steps x (1 + lm_max_iterations)
-    times; no K5."""
+    times, and with both switches on lm_assemble, lm_trial and lm_accept as
+    often as K3a; no K5."""
     m = cfg.matcher
     lin = bool(m.use_pallas_linearize and m.use_intensity_as_dimension)
     iters = m.gnc_steps * m.lm_max_iterations
+    step = solves * iters if lin and m.use_pallas_chol else 0
     return {"row_windows": scans, "segment_topk_moments": scans,
             "segment_moments": 0,
             "ndt_linearize": solves * iters if lin else 0,
             "ndt_robust_cost": solves * (2 + m.gnc_steps * (1 + m.lm_max_iterations))
             if lin else 0,
-            "chol_solve": solves * iters if m.use_pallas_chol else 0}
+            "chol_solve": solves * iters if m.use_pallas_chol else 0,
+            "lm_assemble": step, "lm_trial": step, "lm_accept": step}
 
 
 def run_path(label, cfg, frames, short, first, gt, dev, scans, az, ranges, stamps):
@@ -1992,12 +2230,14 @@ def batch_kernel_inputs(cfg, scans_b, az, ranges, dev):
     return k1, (values, ids, num, cfg.capacity.max_scan_cells)
 
 
-def check_batched_kernels(k1b, k2b, lin, chol, cfg, dev):
+def check_batched_kernels(k1b, k2b, lin, chol, steps, cfg, dev):
     """Phase 11 (b): K1, K2, K3a, K3b and K4 on real batched inputs (one
     frame of the B = 8 run) against their batched plain versions, to the
     single checks' tolerances; B = 1 batched bitwise equal to the unbatched
-    launch; each kernel's time at this B and its bound for the batched
-    bytes.  Returns {kernel: (ms, bound_ms, bound_by)}."""
+    launch; then the LM iteration's own kernels on every iteration of that
+    frame's batched solve (:func:`check_lm_step`); each kernel's time at
+    this B and its bound for the batched bytes.  Returns {kernel: (ms,
+    bound_ms, bound_by)}."""
     import torch
 
     from randt_slam_torch.ops import ndt_linearize as NL
@@ -2110,6 +2350,8 @@ def check_batched_kernels(k1b, k2b, lin, chol, cfg, dev):
     for name, (ms, bd, by) in out.items():
         print(f"  {name} at B = {Bm}: kernel {ms * 1e3:.2f} us, bound {bd * 1e3:.4f} us "
               f"({by})", flush=True)
+    for name, r in check_lm_step(steps, f"one frame of the B = {Bm} run").items():
+        out[name] = (r["ms"], r["bound_ms"], r["bound_by"])
     return out
 
 
@@ -2201,8 +2443,8 @@ def batch_phase(cfg_on, cfg_off, drive0, dev, smi):
 
     def one(label, cfg, B, n, steady_from, capture):
         ctx = spying_solves(CAPTURE_FRAME) if capture else contextlib.nullcontext(
-            (None, None, None))
-        with ctx as (now, lin, chol):
+            (None, None, None, None))
+        with ctx as (now, lin, chol, steps):
             outs, launches, solves, ms, fps, peak = batch_run(
                 cfg, stack(B, n), steady_from, dev,
                 on_frame=(lambda t, c: now.__setitem__(0, t)) if capture else None)
@@ -2230,7 +2472,7 @@ def batch_phase(cfg_on, cfg_off, drive0, dev, smi):
               f"{max(gaps):.2e} m, first frame with other bits per member "
               f"{first_bits}; ATE per member {[round(a, 4) for a in ates]} m (band < "
               f"{ATE_BAND_M} m)", flush=True)
-        return (lin, chol), dict(ms=ms, fps=fps, peak=peak, outs=outs)
+        return (lin, chol, steps), dict(ms=ms, fps=fps, peak=peak, outs=outs)
 
     record = {}
     for B in BATCH_SIZES:
@@ -2635,7 +2877,7 @@ def indoor_kernels(drive, dev):
                segment_topk_moments=check_k2([k2_in], dev, None))
     frames = slam.frames_from_arrays(scans[:n], az, ranges, stamps[:n],
                                      imu_yaw=imu[:n], device=dev)
-    _, lin, chol = capture_solve_inputs(cfg, frames, dev, CAPTURE_FRAME)
+    _, lin, chol, steps = capture_solve_inputs(cfg, frames, dev, CAPTURE_FRAME)
     k3_sets = [(NL.pose_inputs(poses), mu, ns, packed)
                for poses, mu, ns, packed in (lin[0], lin[-1])]
     out["ndt_linearize"], out["ndt_robust_cost"] = check_k3(k3_sets, cfg, dev, None)
@@ -2648,6 +2890,7 @@ def indoor_kernels(drive, dev):
         raise AssertionError("indoor: no bias column free in the captured systems")
     print(f"K4's indoor systems have the bias free in columns {free_bias}", flush=True)
     out["chol_solve"] = check_k4(chol, dev, None)
+    out.update(check_lm_step(steps, "indoor, the IMU on"))
     return out
 
 
@@ -3005,7 +3248,7 @@ def main(save_slam_graph=None) -> int:
     short = type(frames)(*(x[:N_SHORT] for x in frames))
     t0 = time.perf_counter()
     # this run is also the first of phase 5's two switches-on CUDA runs
-    r_on, lin, chol = capture_solve_inputs(cfg_on, short, dev, CAPTURE_FRAME)
+    r_on, lin, chol, steps = capture_solve_inputs(cfg_on, short, dev, CAPTURE_FRAME)
     print(f"switches-on run of {N_SHORT} frames (cold, capturing frame "
           f"{CAPTURE_FRAME}: {len(lin)} linearizations, {len(chol)} solves): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -3027,6 +3270,7 @@ def main(save_slam_graph=None) -> int:
                 for poses, mu, ns, packed in (lin[0], lin[-1])]
     k3a, k3b = check_k3(k3_sets, cfg_on, dev)
     k4 = check_k4(chol, dev)
+    lm = check_lm_step(steps, f"frame {CAPTURE_FRAME}'s window solve")
 
     # ---- 4./5./6. both odometry paths ------------------------------------
     launches = {}
@@ -3108,25 +3352,34 @@ def main(save_slam_graph=None) -> int:
                          indoor_library_ms=k["library_ms"], indoor_bound_ms=k["bound_ms"],
                          indoor_bound_by=k["bound_by"], indoor_max_abs_err=k["max_abs_err"])
         return dict(name=n, route="cuda", source="randt_slam_torch/csrc/" + source,
-                    replaces="randt_slam_tpu/ops/" + replaces, launches=launches,
+                    replaces="randt_slam_tpu/" + replaces, launches=launches,
                     online_launches=online[n], indoor_launches=in_launches[n],
                     multi_device_launches={w: [rank[n] for rank in per_rank]
                                            for w, per_rank in md.items()},
                     **measured, **extra)
 
     rows = [
-        record("row_windows", "window_slice.cu", "window_slice.py:49",
+        record("row_windows", "window_slice.cu", "ops/window_slice.py:49",
                launches["off"]["row_windows"], dict(k1, ogm_launches=ogm_k1)),
-        record("segment_topk_moments", "segment_moments.cu", "segment_moments.py:154",
+        record("segment_topk_moments", "segment_moments.cu", "ops/segment_moments.py:154",
                launches["off"]["segment_topk_moments"], k2),
-        record("segment_moments", "segment_sum.cu", "segment_moments.py:81",
+        record("segment_moments", "segment_sum.cu", "ops/segment_moments.py:81",
                k5_launches, k5),
-        record("ndt_linearize", "ndt_linearize.cu", "ndt_linearize.py:251",
+        record("ndt_linearize", "ndt_linearize.cu", "ops/ndt_linearize.py:251",
                launches["on"]["ndt_linearize"], k3a),
-        record("ndt_robust_cost", "ndt_linearize.cu", "ndt_linearize.py:282",
+        record("ndt_robust_cost", "ndt_linearize.cu", "ops/ndt_linearize.py:282",
                launches["on"]["ndt_robust_cost"], k3b),
-        record("chol_solve", "small_chol.cu", "small_chol.py:77",
+        record("chol_solve", "small_chol.cu", "ops/small_chol.py:77",
                launches["on"]["chol_solve"], k4),
+        # the XLA ops of the LM loop's body: the aux Jacobian and normal
+        # equations with the Jacobi scaling and damping, the trial step, the
+        # acceptance
+        record("lm_assemble", "lm_step.cu", "registration/matcher.py:272",
+               launches["on"]["lm_assemble"], lm["lm_assemble"]),
+        record("lm_trial", "lm_step.cu", "registration/solver.py:130",
+               launches["on"]["lm_trial"], lm["lm_trial"]),
+        record("lm_accept", "lm_step.cu", "registration/solver.py:135",
+               launches["on"]["lm_accept"], lm["lm_accept"]),
     ]
     print(f"chip_smoke: passed in {time.perf_counter() - t_start:.1f} s wall (set-up "
           f"{setup_s:.1f} s, kernels and odometry {odometry_s:.1f} s, K5 {k5_s:.1f} s, "

@@ -32,7 +32,7 @@ BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 SOURCES = ("window_slice", "segment_moments", "segment_sum", "ndt_linearize",
-           "small_chol")
+           "small_chol", "lm_step")
 
 LAUNCHES = profiling.CounterView("kernel.", profiling.KERNELS)
 

@@ -30,8 +30,12 @@ eagerly.
 ``MatcherConfig.use_pallas_linearize`` (3-D residual only) and
 ``use_pallas_chol`` route the LM loop through the fused kernels K3a/K3b
 (``ops/ndt_linearize``) and K4 (``ops/small_chol``): the CUDA kernels on a
-CUDA tensor, their plain versions on a CPU tensor.  Off, the NDT blocks come
-from reverse-mode autograd and the solve from ``torch.linalg.solve_ex``.
+CUDA tensor, their plain versions on a CPU tensor.  With both on, on a CUDA
+tensor, the rest of each LM iteration is ``ops/lm_step``'s three kernels
+(six launches an iteration in all, ``window.window_loop``); on a CPU
+tensor it is the tensor ops of ``window`` and ``solver.lm_solve``.
+Off, the NDT blocks come from reverse-mode autograd and the solve from
+``torch.linalg.solve_ex``.
 
 Loop closure: :func:`estimate_loop` (``estimateLoopConstraint``, :426-493)
 refines a batch of candidate relative poses together, and
@@ -58,6 +62,7 @@ from ..utils import profiling
 from . import barron
 from . import residuals as R
 from . import solver
+from . import window
 
 
 class ScanWindow(NamedTuple):
@@ -187,133 +192,51 @@ def _window_solve(mcfg, n_exist: int, params0, dts, imu_meas, ndt_scale,
     benign moving cells (..., W, C, 3) and (..., W, C, 3, 3) and their
     neighbours' means and covariances (..., W, F, C, K, 3[, 3])."""
     W = mcfg.smoothing_steps
-    dtype, dev = params0.dtype, params0.device
+    dev = params0.device
     lead = params0.shape[:-1]
-    nl = len(lead)
     use_int = bool(mcfg.use_intensity_as_dimension)
     fused = bool(mcfg.use_pallas_linearize) and use_int
-    slot_active_np, active_np, angle_np = _window_masks(mcfg, W, n_exist)
-    active_mask = runtime.const(active_np, torch.bool, dev)
-    angle_mask = runtime.const(angle_np, torch.bool, dev)
-
-    # ---- residual functions over flattened params ---------------------------
-    # float32 product, as the JAX package forms it
-    sqrtI = runtime.const(
-        np.asarray(mcfg.motion_sqrt_information, np.float32)
-        * np.float32(mcfg.covariance_scaling_factor), dtype, dev)
-    w_imu, w_bias = mcfg.weight_imu, mcfg.weight_imu_bias
-
-    def aux_fn(p_flat):
-        # Both residuals broadcast over the W transitions.
-        p = p_flat.reshape(lead + (W + 1, 9))
-        r_mot = R.motion_residual(p[..., :-1, :], p[..., 1:, :], dts, sqrtI)
-        r_imu = R.imu_residual(p[..., :-1, :], p[..., 1:, :], dts, imu_meas,
-                               w_imu, w_bias)
-        return torch.cat([r_mot.reshape(lead + (-1,)), r_imu.reshape(lead + (-1,))],
-                         dim=-1)
-
+    # with both switches on, the card runs the LM iteration as six kernels
+    kernel_loop = fused and bool(mcfg.use_pallas_chol) and params0.is_cuda
+    aux = window.window_aux(mcfg, lead, *_window_masks(mcfg, W, n_exist), dts,
+                            imu_meas, kernels=kernel_loop)
     ndt_valid = pair_valid.reshape(lead + (-1,))
-    aux_valid = runtime.const(np.concatenate([
-        np.repeat(slot_active_np, 8),
-        np.repeat(slot_active_np & bool(mcfg.use_imu), 2),
-    ]), torch.bool, dev)
-
-    # ---- structured linearizer ---------------------------------------------
-    # The per-slot 3x3 JᵀWJ blocks of the NDT residuals are added into the
-    # (P, P) normal equations of the aux (motion/IMU) residuals.
-    active_f = active_mask.to(dtype)
     scale_ = mcfg.loss_function_scale
     alpha_ = mcfg.loss_function_convexity
-    wa = aux_valid.to(dtype)
-    P = (W + 1) * 9
-    NA = 10  # aux residuals per transition: 8 motion + 2 IMU
-    # aux Jacobian layout: transition j, component m -> row, and the column
-    # blocks of its two states
-    rows_np = np.array([[j * 8 + m if m < 8 else W * 8 + j * 2 + (m - 8)
-                         for m in range(NA)] for j in range(W)])
-    aux_rows = runtime.const(rows_np, torch.long, dev)
-    aux_cols = runtime.const(np.arange(W)[:, None].repeat(NA, 1), torch.long, dev)
-    # rows/cols of slot j's 3x3 pose block in the (P, P) system
-    blk = 9 * (np.arange(W)[:, None] + 1) + np.arange(3)  # (W, 3)
-    blk_r = runtime.const(np.broadcast_to(blk[:, :, None], (W, 3, 3)), torch.long, dev)
-    blk_c = runtime.const(np.broadcast_to(blk[:, None, :], (W, 3, 3)), torch.long, dev)
-    blk_g = runtime.const(blk, torch.long, dev)
-    af_blk = active_f[blk_g]  # (W, 3)
-    at = (slice(None),) * nl  # the batch dims, whole
-    if nl:  # the problem index of every block entry
-        b = torch.arange(lead[0], device=dev)
-        h_at, g_at = (b[:, None, None, None], blk_r, blk_c), (b[:, None, None], blk_g)
-    else:
-        h_at, g_at = (blk_r, blk_c), (blk_g,)
 
-    def aux_jacobian(p):
-        """(r_aux (..., Na), J_aux (..., Na, P)): copy m of each transition's
-        two states yields component m of its residual."""
-        with torch.enable_grad():
-            s0 = p[..., :-1, :].detach()[..., :, None, :].expand(
-                lead + (W, NA, 9)).clone().requires_grad_(True)
-            s1 = p[..., 1:, :].detach()[..., :, None, :].expand(
-                lead + (W, NA, 9)).clone().requires_grad_(True)
-            r_all = torch.cat([
-                R.motion_residual(s0, s1, dts[..., :, None], sqrtI),
-                R.imu_residual(s0, s1, dts[..., :, None], imu_meas[..., :, None],
-                               w_imu, w_bias),
-            ], dim=-1)  # (..., W, NA copies, NA components)
-            picked = torch.diagonal(r_all, dim1=-2, dim2=-1)  # (..., W, NA)
-            g0, g1 = torch.autograd.grad(picked.sum(), (s0, s1))
-        picked = picked.detach()
-        ra = torch.cat([picked[..., :8].reshape(lead + (-1,)),
-                        picked[..., 8:].reshape(lead + (-1,))], dim=-1)
-        J = p.new_zeros(lead + (W * NA, W + 1, 9))
-        J[at + (aux_rows, aux_cols)] = g0
-        J[at + (aux_rows, aux_cols + 1)] = g1
-        return ra, J.reshape(lead + (W * NA, P))
-
-    def assemble(p, Hj, gj):
-        """The aux normal equations plus the per-slot NDT blocks."""
-        ra, Ja = aux_jacobian(p)
-        Jm = Ja * active_f[None, :]
-        JW = Jm * wa[:, None]
-        H = Jm.mT @ JW
-        # a batch as row vectors: on the CPU each member's sums come out as
-        # the unbatched matrix-vector product's
-        g = JW.mT @ ra if nl == 0 else (ra[..., None, :] @ JW)[..., 0, :]
-        H = H.index_put(h_at, Hj * af_blk[:, :, None] * af_blk[:, None, :],
-                        accumulate=True)
-        g = g.index_put(g_at, gj * af_blk, accumulate=True)
-        return H, g
-
-    cost_fn = r2max_fn = solve_fn = None
+    cost_fn = r2max_fn = solve_fn = loop = None
     if mcfg.use_pallas_chol:
         solve_fn = small_chol.chol_solve
     if fused:
         # Per LM iteration K3a gives the NDT blocks, K3b the trial cost, K4
-        # the damped solve.
+        # the damped solve; on the card the rest of the iteration is three
+        # kernels more (window.window_loop).
         packed = pairs
         residual_fn = None  # cost_fn and r2max_fn stand in for it
-        mu_one = runtime.const(np.ones(math.prod(lead), np.float32), dtype,
+        mu_one = runtime.const(np.ones(math.prod(lead), np.float32), params0.dtype,
                                dev).reshape(lead)
-
-        def aux_cost(p_flat):
-            ra = aux_fn(p_flat)
-            return torch.sum(torch.where(aux_valid, ra * ra, 0.0), dim=-1)
 
         def linearize_fn(p_flat, mu):
             p = p_flat.reshape(lead + (W + 1, 9))
             Hj, gj, _ = NL.linearize(p[..., 1:, :3], mu, ndt_scale, packed,
                                      float(scale_), float(alpha_))
-            return assemble(p, Hj, gj)
+            return window.assemble_normal(aux, p, Hj, gj)
 
         def cost_fn(p_flat, mu):
             p = p_flat.reshape(lead + (W + 1, 9))
             rho, _ = NL.robust_cost(p[..., 1:, :3], mu, packed, float(scale_),
                                     float(alpha_))
-            return 0.5 * (ndt_scale * rho + aux_cost(p_flat))
+            return 0.5 * (ndt_scale * rho + window.aux_cost(aux, p_flat))
 
         def r2max_fn(p_flat):
             p = p_flat.reshape(lead + (W + 1, 9))
             return NL.robust_cost(p[..., 1:, :3], mu_one, packed, float(scale_),
                                   float(alpha_))[1]
+
+        if kernel_loop:
+            loop = window.window_loop(aux, packed, ndt_scale, float(scale_),
+                                      float(alpha_), mcfg.lm_tolerance,
+                                      mcfg.lm_function_tolerance)
     else:
         m_mean, m_cov, a_mean, a_cov = pairs
         m_mean_b, m_cov_b = _moving_pairs(m_mean, m_cov, a_mean, a_cov)
@@ -325,23 +248,23 @@ def _window_solve(mcfg, n_exist: int, params0, dts, imu_meas, ndt_scale,
                 pose_w[..., :, None, None, None, :], m_mean_b, m_cov_b,
                 a_mean, a_cov, use_intensity=use_int,
             )  # (..., W, F, C, K)
-            return r_ndt.reshape(lead + (-1,)), aux_fn(p_flat)
+            return r_ndt.reshape(lead + (-1,)), window.aux_residuals(aux, p_flat)
 
         def linearize_fn(p_flat, mu):
             p = p_flat.reshape(lead + (W + 1, 9))
             Hj, gj = ndt_blocks_autograd(p[..., 1:, :3], m_mean_b, m_cov_b, a_mean,
                                          a_cov, pair_valid, ndt_scale, scale_,
                                          alpha_, mu, use_intensity=use_int)
-            return assemble(p, Hj, gj)
+            return window.assemble_normal(aux, p, Hj, gj)
 
     return solver.gnc_solve(
         residual_fn,
         linearize_fn,
         params0,
-        active_mask,
-        angle_mask,
+        aux.active_mask,
+        aux.angle_mask,
         ndt_valid,
-        aux_valid,
+        aux.aux_valid,
         ndt_scale,
         mcfg.loss_function_scale,
         mcfg.loss_function_convexity,
@@ -353,6 +276,7 @@ def _window_solve(mcfg, n_exist: int, params0, dts, imu_meas, ndt_scale,
         cost_fn=cost_fn,
         r2max_fn=r2max_fn,
         solve_fn=solve_fn,
+        loop=loop,
     )
 
 

@@ -2,8 +2,9 @@
 
 The solve of ``matcher.estimate_window`` is ``gnc_steps`` x
 ``lm_max_iterations`` LM iterations of a fixed trip count with no host read
-(``solver.py``): ~460 small launches an iteration, which the host takes far
-longer to dispatch than the card to run.  :class:`SolveGraphs` captures such
+(``solver.py``): ~460 small launches an iteration as tensor ops (six with
+both kernel switches on, ``ops/lm_step``), each of which costs the host
+more to dispatch than the card to run.  :class:`SolveGraphs` captures such
 a solve once per key and replays it per frame:
 
 * the first time a key is seen, the solve runs eagerly (its result is

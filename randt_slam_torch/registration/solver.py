@@ -51,6 +51,49 @@ def _robust_cost(r_ndt, r_aux, ndt_valid, aux_valid, ndt_scale, scale, alpha, mu
     return 0.5 * (ndt_scale * c_ndt + c_aux)
 
 
+def scaled_system(H, g, lam, active_f):
+    """The damped system (A, rhs, dscale) of the normal equations H, g."""
+    # Jacobi-scale the normal equations before solving (curvatures span
+    # ~10 decades; an unscaled float32 solve leaks error into the weak
+    # directions).  After scaling, active diagonals are 1 and the
+    # Marquardt damping is lam * I.
+    diag = torch.diagonal(H, dim1=-2, dim2=-1)
+    dscale = torch.rsqrt(torch.clamp(diag, min=1e-10)) * active_f
+    Hs = H * dscale[..., :, None] * dscale[..., None, :]
+    damp = lam[..., None] * active_f + (1.0 - active_f)
+    return Hs + torch.diag_embed(damp), g * dscale, dscale
+
+
+def trial_step(p, x, dscale, angle_mask):
+    """(delta, trial) of the scaled system's solution x."""
+    delta = -x * dscale
+    trial = p + delta
+    return delta, torch.where(angle_mask, normalize_angle(trial), trial)
+
+
+def step_norms(delta, p, active_f):
+    """|delta| and |p * active| (...), the parameter tolerance's norms."""
+    return (torch.linalg.vector_norm(delta, dim=-1),
+            torch.linalg.vector_norm(p * active_f, dim=-1))
+
+
+def accept_step(p, c, lam, done, trial, c_new, dnorm, pnorm, tol: float,
+                ftol: float):
+    """The next (p, c, lam, done): accept the trial where it lowers the
+    cost, update the damping, and freeze what is done."""
+    accept = c_new < c
+    p_next = torch.where(accept[..., None], trial, p)
+    c_next = torch.where(accept, c_new, c)
+    lam_next = torch.clamp(torch.where(accept, lam / 3.0, lam * 4.0), 1e-10, 1e8)
+    # Ceres parameter_tolerance (relative step) and function_tolerance.
+    small = dnorm <= tol * (pnorm + tol)
+    flat = (c - c_new) <= ftol * c
+    done_next = (accept & (small | flat)) | ((~accept) & (lam >= 1e7))
+    # Freeze once the early-exit loop would have stopped.
+    return (torch.where(done[..., None], p, p_next), torch.where(done, c, c_next),
+            torch.where(done, lam, lam_next), done | done_next)
+
+
 def lm_solve(
     residual_fn: Callable,
     linearize_fn: Callable,
@@ -69,6 +112,7 @@ def lm_solve(
     cost_fn: Callable | None = None,
     solve_fn: Callable | None = None,
     live=None,
+    loop: Callable | None = None,
 ):
     """Damped Gauss-Newton (LM) at a fixed GNC mu, ``max_iters`` iterations.
 
@@ -81,7 +125,10 @@ def lm_solve(
     ``live``, if given, is an int32 tensor of the batch shape holding
     ``max_iters``: each iteration takes one from it, in place, for every
     problem already done, so it ends as the count of iterations that
-    worked on each problem.
+    worked on each problem.  ``loop(params0, c, lam, done, mu, live,
+    max_iters) -> (p, c)``, if given, runs the iterations from the same
+    start in place of ``linearize_fn``, ``solve_fn`` and the trial's cost
+    (``window.window_loop``: the odometry window solve's kernels).
     """
     active_f = active_mask.to(params0.dtype)
 
@@ -97,43 +144,21 @@ def lm_solve(
     c = cost_at(params0)
     lam = torch.full(batch, 1e-4, dtype=params0.dtype, device=params0.device)
     done = torch.zeros(batch, dtype=torch.bool, device=params0.device)
+    if loop is not None:
+        return loop(params0, c, lam, done, mu, live, max_iters)
     for _ in range(max_iters):
         if live is not None:
             live.add_(done, alpha=-1)
         H, g = linearize_fn(p, mu)
-        # Jacobi-scale the normal equations before solving (curvatures span
-        # ~10 decades; an unscaled float32 solve leaks error into the weak
-        # directions).  After scaling, active diagonals are 1 and the
-        # Marquardt damping is lam * I.
-        diag = torch.diagonal(H, dim1=-2, dim2=-1)
-        dscale = torch.rsqrt(torch.clamp(diag, min=1e-10)) * active_f
-        Hs = H * dscale[..., :, None] * dscale[..., None, :]
-        damp = lam[..., None] * active_f + (1.0 - active_f)
-        A = Hs + torch.diag_embed(damp)
-        rhs = g * dscale
+        A, rhs, dscale = scaled_system(H, g, lam, active_f)
         # solve_ex: no host-side check of the factorization's info flag.
-        delta_s = -(torch.linalg.solve_ex(A, rhs)[0] if solve_fn is None
-                    else solve_fn(A, rhs))
-        delta = delta_s * dscale
-
-        trial = p + delta
-        trial = torch.where(angle_mask, normalize_angle(trial), trial)
+        x = (torch.linalg.solve_ex(A, rhs)[0] if solve_fn is None
+             else solve_fn(A, rhs))
+        delta, trial = trial_step(p, x, dscale, angle_mask)
         c_new = cost_at(trial)
-        accept = c_new < c
-        p_next = torch.where(accept[..., None], trial, p)
-        c_next = torch.where(accept, c_new, c)
-        lam_next = torch.clamp(torch.where(accept, lam / 3.0, lam * 4.0),
-                               1e-10, 1e8)
-        # Ceres parameter_tolerance (relative step) and function_tolerance.
-        p_norm = torch.linalg.vector_norm(p * active_f, dim=-1)
-        small = torch.linalg.vector_norm(delta, dim=-1) <= tol * (p_norm + tol)
-        flat = (c - c_new) <= ftol * c
-        done_next = (accept & (small | flat)) | ((~accept) & (lam >= 1e7))
-        # Freeze once the early-exit loop would have stopped.
-        p = torch.where(done[..., None], p, p_next)
-        c = torch.where(done, c, c_next)
-        lam = torch.where(done, lam, lam_next)
-        done = done | done_next
+        p, c, lam, done = accept_step(
+            p, c, lam, done, trial, c_new, *step_norms(delta, p, active_f),
+            tol, ftol)
     return p, c
 
 
@@ -157,13 +182,15 @@ def gnc_solve(
     cost_fn: Callable | None = None,
     r2max_fn: Callable | None = None,
     solve_fn: Callable | None = None,
+    loop: Callable | None = None,
 ) -> SolveResult:
     """Graduated non-convexity: LM solves over the decreasing-mu schedule
     (do-while, ``ndt_matcher.cpp:390-397``), ``gnc_steps`` rounds.
 
     ``cost_fn(p, mu)`` / ``r2max_fn(p)`` / ``solve_fn(A, b)``, if given,
     replace the residual-stack cost (initial, trial and final), the largest
-    squared residual of the mu initialisation, and the damped solve.
+    squared residual of the mu initialisation, and the damped solve;
+    ``loop``, if given, runs each round's LM iterations (:func:`lm_solve`).
 
     While the registry counts (``utils/profiling.counting``), the solve
     keeps a sample ``randt.lm_solve`` of two lists over its rounds:
@@ -190,6 +217,7 @@ def gnc_solve(
             residual_fn, linearize_fn, p, active_mask, angle_mask, ndt_valid,
             aux_valid, ndt_scale, scale, alpha, mu_eff, lm_max_iters, lm_tol,
             ftol=lm_ftol, cost_fn=cost_fn, solve_fn=solve_fn, live=live,
+            loop=loop,
         )
         if r == 0:  # the do-while's first round always runs
             p, mu = p_new, mu / divisor

@@ -61,7 +61,8 @@ SAMPLE_SIZE = 4096           # device samples kept
 ALLOC_SPANS = frozenset({"randt.frontend_step", "randt.outputs_to_host"})
 ALLOC_KEYS = ("num_device_alloc", "num_device_free", "num_alloc_retries")
 KERNELS = ("row_windows", "segment_topk_moments", "segment_moments",
-           "ndt_linearize", "ndt_robust_cost", "chol_solve")
+           "ndt_linearize", "ndt_robust_cost", "chol_solve", "lm_assemble",
+           "lm_trial", "lm_accept")
 
 
 class Record(NamedTuple):

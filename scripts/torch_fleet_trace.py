@@ -32,7 +32,10 @@ counters on, every span also a ``record_function`` range), as a
   ``lm_batch_iters``;
 * ``lm_graph``: per chunk, how many window solves ran eagerly, were
   captured as CUDA graphs and were replayed (the registry's ``lm_graph.*``
-  counters, ``registration/solve_graph``).
+  counters, ``registration/solve_graph``), and the launches of the LM
+  iteration's kernels (``kernel.lm_assemble``, ``kernel.lm_trial``,
+  ``kernel.lm_accept`` beside ``kernel.ndt_linearize``: on the switches-on
+  card path all four are equal).
 """
 
 from __future__ import annotations
@@ -45,9 +48,12 @@ import sys
 import time
 from collections import defaultdict
 
-GRAPH_COUNTERS = ("lm_graph.eager", "lm_graph.capture", "lm_graph.replay")
+GRAPH_COUNTERS = ("lm_graph.eager", "lm_graph.capture", "lm_graph.replay",
+                  "kernel.ndt_linearize", "kernel.lm_assemble", "kernel.lm_trial",
+                  "kernel.lm_accept")
 KERNELS = ("linearize_kernel", "robust_cost_kernel", "chol_solve_kernel",
-           "topi_moments_kernel")
+           "topi_moments_kernel", "lm_assemble_kernel", "lm_trial_kernel",
+           "lm_accept_kernel")
 QUANTILES = (0, 10, 50, 90, 100)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)

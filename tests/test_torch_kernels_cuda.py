@@ -39,9 +39,10 @@ PyTorch is installed:
   rows; batch, repeat and one-by-one launches bitwise equal.
 * The wrappers refuse inputs the kernels do not take.
 * A short odometry run launches K1 and K2 once per frame; with the switches
-  on, each ``estimate_window`` call launches K3a and K4 gnc_steps x
-  lm_max_iterations times and K3b 2 + gnc_steps x (1 + lm_max_iterations)
-  times, with them off none of the three; each run repeats bitwise.
+  on, each ``estimate_window`` call launches K3a, K4, lm_assemble, lm_trial
+  and lm_accept gnc_steps x lm_max_iterations times and K3b 2 + gnc_steps x
+  (1 + lm_max_iterations) times, with them off none of them; each run
+  repeats bitwise.
 * Full SLAM on the CPU tests' loop sequence: loop closure and the pose
   graph on the CPU from the card's odometry give the card's tables, with
   the free-running edges and CS values inside ``chip_smoke.py``'s band.
@@ -78,6 +79,18 @@ PyTorch is installed:
   with frames of one key answering differently; one capture per key (2, 3
   and 4 existing window states), a replay for every later solve, and the
   kernel counters the eager run's launches.
+* The LM iteration's own kernels ``lm_assemble``, ``lm_trial`` and
+  ``lm_accept`` (``ops/lm_step``) against their plain versions, on random
+  iterations at the Oxford configuration (B in {1, 8, 512}, W = 3, every
+  number of existing states) and on every iteration of an IMU-on window
+  solve at the indoor shapes: the damped system within 1e-5 of its
+  scale, the trial bitwise, the acceptance's flags, damping and states
+  exact wherever the cost and step tests are decided by more than 1e-5,
+  the live counter exact; two launches bitwise.  Whole switches-on window
+  solves on the card within 1e-4 (m, m/s) and 1e-5 (rad, rad/s) of the
+  CPU's tensor ops; a member of a batch of 8 bitwise its own solve; the
+  wrappers refuse W > 6 (P > 63), other dtypes, devices, shapes and
+  strides.  Each launches once per LM iteration, as K3a does.
 * The indoor shapes (``indoor_config()``, the IMU on): K1 and K2 on a
   rendered 400 x 400 frame of 3 cm bins (k = 256), bitwise and within
   1e-5 of their scale as above; K3a/K3b on every LM iteration's pairs of an
@@ -455,6 +468,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 SWITCHES = {"off": {}, "on": {"matcher.use_pallas_linearize": True,
                               "matcher.use_pallas_chol": True}}
+# the LM iteration's own kernels: as often as K3a with both switches on
+LM_STEP = ("lm_assemble", "lm_trial", "lm_accept")
 
 
 @pytest.mark.cuda
@@ -478,6 +493,7 @@ def test_odometry_launches_each_kernel_once_per_frame(dev, switches):
         "ndt_linearize": solves * m.gnc_steps * m.lm_max_iterations,
         "ndt_robust_cost": solves * (2 + m.gnc_steps * (1 + m.lm_max_iterations)),
         "chol_solve": solves * m.gnc_steps * m.lm_max_iterations,
+        **{k: solves * m.gnc_steps * m.lm_max_iterations for k in LM_STEP},
     }
     b = slam.run_odometry(cfg, frames, device=dev)
     assert np.array_equal(a.odom_poses, b.odom_poses)
@@ -969,6 +985,7 @@ def test_batched_odometry_launches_once_per_batched_frame(dev, switches):
         "ndt_linearize": solves * m.gnc_steps * m.lm_max_iterations,
         "ndt_robust_cost": solves * (2 + m.gnc_steps * (1 + m.lm_max_iterations)),
         "chol_solve": solves * m.gnc_steps * m.lm_max_iterations,
+        **{k: solves * m.gnc_steps * m.lm_max_iterations for k in LM_STEP},
     }
     for b, fr in enumerate(lists):
         single = slam.run_odometry(cfg, fr, device=dev)
@@ -1006,7 +1023,7 @@ def indoor_inputs():
     scans, az, ranges, stamps, imu, _ = render_indoor(12)
     k1, k2, _ = frame_inputs(cfg, scans[CAPTURE_FRAME], az, ranges, dev)
     frames = slam.frames_from_arrays(scans, az, ranges, stamps, imu_yaw=imu, device=dev)
-    _, lin, chol = capture_solve_inputs(cfg, frames, dev, CAPTURE_FRAME)
+    _, lin, chol, _ = capture_solve_inputs(cfg, frames, dev, CAPTURE_FRAME)
     return dict(cfg=cfg, k1=k1, k2=k2, lin=lin, chol=chol)
 
 
@@ -1261,6 +1278,10 @@ def test_batched_graph_path_is_the_eager_path(dev, name, monkeypatch):
     if GRAPH_MATCHER[name]:
         m = cfg.matcher
         assert launches["chol_solve"] == len(rec.calls) * m.gnc_steps * m.lm_max_iterations
+        assert all(launches[k] == launches["ndt_linearize"] == launches["chol_solve"]
+                   for k in LM_STEP)
+    else:
+        assert not any(launches[k] for k in LM_STEP)
 
 
 @pytest.mark.cuda
@@ -1275,3 +1296,273 @@ def test_single_sequence_graph_path_is_the_eager_path(dev, monkeypatch):
         _bitwise(getattr(graphed, f.name), getattr(eager, f.name))
     _check_graph_cache(rec, counted)
     assert launches == e_launches
+
+
+# ---- one LM iteration's own kernels (ops/lm_step) -----------------------------
+
+
+def _lm_inputs(rng, B, n_exist, dev):
+    """A random LM iteration of ``B`` windows at ``oxford_config()``'s
+    matcher (W = 3): the window's aux context, K3a's blocks, the states and
+    the damping.  States about a 4 m/s drive, headings anywhere, dt on both
+    sides of the 0.2 s clamp."""
+    from randt_slam_torch.config import oxford_config
+    from randt_slam_torch.registration import matcher
+    from randt_slam_torch.registration import window as Wn
+
+    mcfg = oxford_config().matcher
+    W = mcfg.smoothing_steps
+
+    def f(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    aux = Wn.window_aux(mcfg, (B,), *matcher._window_masks(mcfg, W, n_exist),
+                        f(rng.uniform(0.1, 0.35, (B, W))), f(rng.normal(0, 0.05, (B, W))),
+                        kernels=True)
+    s = np.zeros((B, W + 1, 9))
+    s[..., :2] = rng.normal(0, 50, (B, W + 1, 2))
+    s[..., 2] = rng.uniform(-np.pi, np.pi, (B, W + 1))
+    s[..., 3] = rng.normal(4.0, 1.0, (B, W + 1))
+    s[..., 4:6] = rng.normal(0, 0.3, (B, W + 1, 2))
+    s[..., 6:8] = rng.normal(0, 0.1, (B, W + 1, 2))
+    s[..., 8] = rng.normal(0, 1e-3, (B, W + 1))
+    G = rng.normal(0, 3.0, (B, W, 3, 3))
+    Hj = f(G @ np.swapaxes(G, -1, -2) + 0.1 * np.eye(3))
+    return (aux, Hj, f(rng.normal(0, 3.0, (B, W, 3))), f(s.reshape(B, -1)),
+            f(10.0 ** rng.uniform(-6, 8.5, B)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_exist", [1, 2, 3, 4])
+@pytest.mark.parametrize("B", [1, 8, 512])
+def test_lm_step_kernels_match_plain(dev, B, n_exist):
+    """The three kernels on random iterations at the Oxford configuration
+    (W = 3, P = 36), every number of existing states: each against its plain
+    version on the same inputs (``chip_smoke``'s ``check_lm_assemble``,
+    ``check_lm_trial`` and ``check_lm_accept``).  The acceptance's inputs
+    are set so that every flag is decided: trial costs 0.5 to 2 times the
+    current cost, the function tolerance at 1e-2 (between the two costs'
+    gaps), the step tolerance between the two middle members' |delta| / |p|,
+    damping up to 3e8 (the >= 1e7 exit), a third of the members done
+    before."""
+    from chip_smoke import check_lm_accept, check_lm_assemble, check_lm_trial
+    from randt_slam_torch.registration import window as Wn
+
+    rng = np.random.default_rng(1000 * B + n_exist)
+    aux, Hj, gj, p, lam = _lm_inputs(rng, B, n_exist, dev)
+    (A, rhs, ds), _ = check_lm_assemble(aux, Hj, gj, p, lam)
+    x = K4.chol_solve_cuda(A, rhs)
+    (trial, _, dnorm, pnorm), _ = check_lm_trial(aux, p, x, ds)
+    rho = torch.tensor(rng.uniform(0, 50, (B, aux.W)), dtype=torch.float32, device=dev)
+    ns = torch.tensor(rng.uniform(1e-3, 0.1, B), dtype=torch.float32, device=dev)
+    c_new = 0.5 * (ns * rho.sum(-1) + Wn.aux_cost(aux, trial))
+    factor = torch.tensor(rng.choice([0.5, 0.995, 1.005, 1.05, 2.0], B),
+                          dtype=torch.float32, device=dev)
+    # the step tolerance halfway (in log) between the two middle members'
+    # |delta| / |p|, so that no member sits on it
+    ratio = torch.sort(dnorm / pnorm).values
+    tol = float(torch.sqrt(ratio[(B - 1) // 2] * ratio[B // 2]) * (0.5 if B == 1 else 1.0))
+    done = torch.tensor(rng.random(B) < 1 / 3, device=dev)
+    live = torch.tensor(rng.integers(0, 50, B), dtype=torch.int32, device=dev)
+    decided, _ = check_lm_accept(aux, rho, trial, dnorm, pnorm, ns, tol, 1e-2, p,
+                                 c_new * factor, lam, done, live)
+    assert decided >= (0.9 if B > 1 else 0.0), decided
+
+
+@pytest.fixture(scope="module")
+def indoor_lm_steps():
+    """Every call of the three kernels' wrappers in frame CAPTURE_FRAME's
+    window solve of a 12-frame IMU-on run at ``indoor_config()`` with the
+    switches on (unbatched, the bias columns free at the reference's
+    weight_imu_bias), that solve eager (``chip_smoke.spying_solves``): (LM
+    iterations a solve, [(wrapper name, the solve's WindowAux, the other
+    inputs)] in call order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from chip_smoke import CAPTURE_FRAME, SWITCHES_ON, capture_solve_inputs, render_indoor
+    from randt_slam_torch.config import indoor_config
+    from randt_slam_torch.pipeline import slam
+
+    dev = torch.device("cuda", 0)
+    scans, az, ranges, stamps, imu, _ = render_indoor(12)
+    frames = slam.frames_from_arrays(scans, az, ranges, stamps, imu_yaw=imu, device=dev)
+    cfg = indoor_config(**SWITCHES_ON)
+    _, _, _, calls = capture_solve_inputs(cfg, frames, dev, CAPTURE_FRAME)
+    return cfg.matcher.gnc_steps * cfg.matcher.lm_max_iterations, calls
+
+
+@pytest.mark.cuda
+def test_lm_step_kernels_at_the_indoor_shapes(dev, indoor_lm_steps):
+    """Each LM iteration of an IMU-on window solve (bias rows active,
+    residuals up to w_bias = 750000.1 times the walk): the three kernels
+    against their plain versions on the iteration's own inputs, as in
+    :func:`test_lm_step_kernels_match_plain`; the acceptance's flags exact
+    wherever decided.  The late iterations of a converging solve take
+    trial costs within 1e-5 of the current one, which no margin decides, so
+    a quarter of the iterations is asked to be decided (the early ones)."""
+    from chip_smoke import check_lm_accept, check_lm_assemble, check_lm_trial
+
+    iters, calls = indoor_lm_steps
+    assert [n for n, _, _ in calls] == ["assemble_cuda", "trial_cuda", "accept_cuda"] * iters
+    checks = {"assemble_cuda": check_lm_assemble, "trial_cuda": check_lm_trial,
+              "accept_cuda": check_lm_accept}
+    decided = []
+    for name, aux, a in calls:
+        assert aux.lead == () and bool(aux.kern.valid[-2:].bool().all())
+        share, _ = checks[name](aux, *a)
+        if name == "accept_cuda":
+            decided.append(share)
+    assert np.mean(decided) >= 0.25, decided
+
+
+def _cpu_window_solves(name, B):
+    """The window solves of a CPU run on :func:`graph_frames` at
+    :func:`graph_config`'s switches ``name``: B = None, one drive through
+    ``run_odometry`` (every solve); else B drives through the batched scan
+    (its solves with 4 existing states).  [(mcfg, n_exist, args)]."""
+    from randt_slam_torch.parallel import batch
+    from randt_slam_torch.pipeline import frontend as F
+    from randt_slam_torch.pipeline import slam
+    from randt_slam_torch.registration import matcher
+
+    cfg = graph_config(name)
+    seen = []
+    solve = matcher._window_solve
+
+    def spy(mcfg, n_exist, *args):
+        seen.append((mcfg, n_exist, tuple(a.clone() for a in args)))
+        return solve(mcfg, n_exist, *args)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(matcher, "_window_solve", spy)
+        if B is None:
+            slam.run_odometry(cfg, graph_frames(3, 8, "cpu"), device="cpu")
+        else:
+            frames = F.Frame(*(torch.stack(x) for x in zip(
+                *[graph_frames(s, 6, "cpu") for s in range(3, 3 + B)])))
+            batch.make_batched_scan(cfg, np.zeros(3), device="cpu")(
+                batch.init_batched_carry(cfg, B, device="cpu"), frames)
+    return seen if B is None else [s for s in seen if s[1] == 4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["on", "imu"])
+def test_window_solve_through_the_kernels_against_the_cpu(dev, name):
+    """Every window solve of an 8-frame drive (2, 3 and 4 existing states),
+    switches on with and without the IMU: the card's solve through the six
+    kernels against the CPU's tensor ops on the same inputs, within
+    ``tests/test_torch_registration.py``'s 1e-4 (m, m/s) and 1e-5 (rad,
+    rad/s), the costs within 1e-4 of each other, the same residual count;
+    the kernels launched once each per LM iteration.
+
+    One exception, tied to its cause, as in that test: the card's float32
+    sums part from the CPU's, and on an IMU-on window (the bias walk
+    weighted 750000.1) the two fixed-trip solves drift apart by one LM
+    step's size (1.4e-3 m on an H100).  A solve over the tolerance must
+    show that the three kernels did not part it: the card's own tensor ops
+    (the iteration without them, K3a/K3b/K4 kept) land within 1e-5 (m,
+    m/s) and 1e-6 (rad, rad/s) of the kernels' answer and are over the
+    tolerance themselves, and both stay within that test's one-step band,
+    5e-3 m / 1e-4 rad, of the CPU's."""
+    from randt_slam_torch.registration import matcher
+    from randt_slam_torch.registration import residuals as R
+    from randt_slam_torch.registration import solver
+
+    ang = [R.TH, R.OM]
+    gnc_solve = solver.gnc_solve
+
+    def tensor_ops(*a, loop, **k):  # the iteration without the three kernels
+        assert loop is not None
+        return gnc_solve(*a, loop=None, **k)
+
+    lin = [c for c in range(9) if c not in ang]
+
+    def gap(a, b):
+        d = np.abs(a.params.cpu().numpy() - b.params.cpu().numpy()).reshape(-1, 9)
+        return d[:, lin].max(), d[:, ang].max()
+
+    worst, drifted = np.zeros(2), 0
+    for mcfg, n_exist, args in _cpu_window_solves(name, None):
+        cpu = matcher._window_solve(mcfg, n_exist, *args)
+        build.reset_launches()
+        card_args = tuple(a.to(dev) for a in args)
+        card = matcher._window_solve(mcfg, n_exist, *card_args)
+        torch.cuda.synchronize()
+        iters = mcfg.gnc_steps * mcfg.lm_max_iterations
+        assert all(build.LAUNCHES[k] == iters for k in LM_STEP + ("ndt_linearize",))
+        d = gap(card, cpu)
+        worst = np.maximum(worst, d)
+        if d[0] > 1e-4 or d[1] > 1e-5:
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(solver, "gnc_solve", tensor_ops)
+                ops = matcher._window_solve(mcfg, n_exist, *card_args)
+            e, o = gap(card, ops), gap(ops, cpu)
+            assert e[0] <= 1e-5 and e[1] <= 1e-6, (n_exist, e)
+            assert o[0] > 1e-4 or o[1] > 1e-5, (n_exist, o)
+            assert d[0] <= 5e-3 and d[1] <= 1e-4, (n_exist, d)
+            drifted += 1
+        assert int(card.n_ndt_valid) == int(cpu.n_ndt_valid)
+        np.testing.assert_allclose(float(card.cost), float(cpu.cost), rtol=1e-4)
+    print(f"switches {name}: the card's window solves within {worst[0]:.2e} (m, m/s) "
+          f"and {worst[1]:.2e} (rad, rad/s) of the CPU's; {drifted} over the "
+          f"tolerance, as the card's tensor ops are")
+
+
+@pytest.mark.cuda
+def test_window_solve_member_of_a_batch_is_its_own_solve(dev):
+    """A batch of 8 windows (8 drives, 4 existing states) solved through the
+    kernels on the card: each member's states and cost bitwise its solve
+    as a batch of one."""
+    from randt_slam_torch.registration import matcher
+
+    solves = _cpu_window_solves("on", 8)
+    assert solves
+    for mcfg, n_exist, args in solves[-2:]:
+        a = tuple(x.to(dev) for x in args)
+        whole = matcher._window_solve(mcfg, n_exist, *a)
+        for b in range(8):
+            one = matcher._window_solve(mcfg, n_exist, *(x[b:b + 1] for x in a))
+            assert torch.equal(whole.params[b:b + 1], one.params), b
+            assert torch.equal(whole.cost[b:b + 1], one.cost), b
+
+
+@pytest.mark.cuda
+def test_lm_step_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from randt_slam_torch.config import oxford_config
+    from randt_slam_torch.ops import lm_step as L
+    from randt_slam_torch.registration import matcher
+    from randt_slam_torch.registration import window as Wn
+
+    rng = np.random.default_rng(7)
+    aux, Hj, gj, p, lam = _lm_inputs(rng, 4, 4, dev)
+    win = aux.kern
+    x, ds = torch.ones_like(p), torch.ones_like(p)
+    with pytest.raises(TypeError):
+        L.assemble_cuda(win, Hj.double(), gj, p, lam)
+    with pytest.raises(ValueError):
+        L.assemble_cuda(win, Hj, gj.cpu(), p, lam)
+    with pytest.raises(ValueError):
+        L.assemble_cuda(win, Hj[:, :2], gj, p, lam)
+    with pytest.raises(ValueError):
+        L.trial_cuda(win, p, x.t().contiguous().t(), ds)
+    with pytest.raises(ValueError):
+        L.trial_cuda(win, p[..., :-9], x[..., :-9], ds[..., :-9])
+    with pytest.raises(ValueError):
+        L.trial_cuda(win, p[None], x[None], ds[None])
+    c, done = torch.ones(4, device=dev), torch.zeros(4, dtype=torch.bool, device=dev)
+    rho, n = torch.ones(4, aux.W, device=dev), torch.ones(4, device=dev)
+    with pytest.raises(TypeError):
+        L.accept_cuda(win, rho, p, n, n, n, 1e-7, 1e-6, p, c, lam, done.float())
+    with pytest.raises(TypeError):
+        L.accept_cuda(win, rho, p, n, n, n, 1e-7, 1e-6, p, c, lam, done,
+                      torch.zeros(4, dtype=torch.int64, device=dev))
+    # W = 7: P = 72, past K4's 64
+    mcfg = dataclasses.replace(oxford_config().matcher, smoothing_steps=7)
+    wide = Wn.window_aux(mcfg, (4,), *matcher._window_masks(mcfg, 7, 8),
+                         torch.ones(4, 7, device=dev), torch.zeros(4, 7, device=dev),
+                         kernels=True)
+    with pytest.raises(ValueError):
+        L.trial_cuda(wide.kern, torch.zeros(4, 72, device=dev), torch.zeros(4, 72, device=dev),
+                     torch.zeros(4, 72, device=dev))
+    with pytest.raises(ValueError):
+        K4.chol_solve_cuda(torch.eye(72, device=dev), torch.ones(72, device=dev))

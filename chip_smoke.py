@@ -283,7 +283,7 @@ K2_BLOCK_PER_SEGMENT_US = 27.49
 # against a single-sequence run of its first N_BATCH_CHECK frames within
 # tests/test_torch_batch.py's free-running bands (ATE gap, headings,
 # positions); B = 2 and three of the checked frames were cut when phase 12
-# joined (the batch curve stays with scripts/torch_batch_curve.py)
+# joined (the batch curve is benchmark/sweep_batch.py's)
 BATCH_SIZES = (1, 4, 8)
 N_BATCH = 30
 BATCH_OFF_B = 4

@@ -68,6 +68,7 @@ from randt_slam_torch.ops import small_chol as K4
 from randt_slam_torch.ops import window_slice as K1
 from randt_slam_torch.parallel import batch as tB
 from randt_slam_torch.pipeline import frontend as tF, slam as tS
+from tests.torch_threads import one_thread  # noqa: F401
 
 SEEDS = (3, 4, 5)
 T = 26
@@ -82,17 +83,6 @@ SWITCHES = {"off": {}, "on": {"matcher.use_pallas_linearize": True,
 FREE_ATE, FREE_ANG, FREE_POS = 1e-2, 5e-3, 1e-1
 STEP_POS_TOL, STEP_ANG_TOL = 1e-4, 1e-5
 MAX_STEPS, STEP_CAP = 8, (1e-2, 1e-4)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Run this module's eager tensor code on one thread: its many small ops
-    run no slower so, and the suite's parallel workers do not oversubscribe
-    the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

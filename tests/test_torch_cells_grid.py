@@ -24,6 +24,7 @@ from randt_slam_tpu.ndt import grid as jG
 from randt_slam_torch.config import synthetic_config as t_synthetic_config
 from randt_slam_torch.ndt import cells as tC
 from randt_slam_torch.ndt import grid as tG
+from tests.torch_threads import one_thread  # noqa: F401
 
 STAT_REL = 1e-5
 FIELD_ATOL = 1e-3

@@ -24,6 +24,7 @@ import torch
 
 from randt_slam_tpu import config as jcfg
 from randt_slam_torch import config as tcfg
+from tests.torch_threads import one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "randt_slam_torch"

@@ -87,6 +87,7 @@ from tests.test_pose_graph import make_circle_graph
 from tests.test_torch_batch import FREE_ANG, FREE_ATE, FREE_POS, TABLES
 from tests.test_torch_schur import GRAPHS, POSE_REL, TOL, _se2_close
 from tests.test_schur import _slam_graph
+from tests.torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PGO_POS, PGO_ANG = 1e-4, 1e-5

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from randt_slam_torch.ndt import divergence as tD
+from tests.torch_threads import one_thread  # noqa: F401
 
 jD = importlib.import_module("randt_slam_tpu.ndt.divergence")
 

@@ -32,6 +32,7 @@ from randt_slam_tpu.pipeline import frontend as jF, slam as jS
 from randt_slam_torch import state
 from randt_slam_torch.config import synthetic_config as t_cfg
 from randt_slam_torch.pipeline import frontend as tF, slam as tS
+from tests.torch_threads import one_thread  # noqa: F401
 
 POSE_TOL, ANG_TOL = 1e-4, 1e-5
 

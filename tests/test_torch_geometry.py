@@ -12,6 +12,7 @@ import torch
 
 from randt_slam_tpu import geometry as jgeo
 from randt_slam_torch import geometry as tgeo
+from tests.torch_threads import one_thread  # noqa: F401
 
 ATOL = 2e-6
 

@@ -46,6 +46,7 @@ from randt_slam_torch.registration import residuals as tR
 from tests.test_imu import TRUE_BIAS, straight_seq  # noqa: F401
 from tests.test_imu import _cfg as j_imu_cfg
 from tests.test_torch_odometry import _jax_carry, _no_exit_test
+from tests.torch_threads import one_thread  # noqa: F401
 
 TABLES = ("node_id", "node_frame", "node_submap", "node_is_root",
           "edge_begin", "edge_end")
@@ -55,15 +56,6 @@ LIN_TOL, ANG_TOL = 1e-4, 1e-5       # one step from one carry
 FREE_ATE, FREE_ANG, FREE_POS, MAX_OVER, FREE_CAP = 5e-3, 1e-3, 1e-2, 4, 5e-2
 BIAS_TOL = 1e-4                     # newest bias state against the JAX run's
 N_TOGGLE = 16                       # test_imu.py's toggle sub-sequence
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The port's eager CPU path runs fastest on one intra-op thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def imu_cfg(use_imu: bool, **overrides):

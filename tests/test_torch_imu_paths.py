@@ -49,7 +49,9 @@ from randt_slam_tpu.io import synthetic
 from tests import test_imu
 from tests.test_imu import _cfg as j_imu_cfg
 from tests.test_torch_imu import (BIAS_TOL, FREE_ANG, FREE_POS, TABLES, _tframes,
-                                  imu_cfg, one_thread)  # noqa: F401
+                                  imu_cfg)
+from tests.torch_threads import one_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def straight_seq():

@@ -19,7 +19,7 @@ What must hold, and why:
   identical; ``test_torch_odometry.py``'s switches-off free-running bands
   on the odometry (ATE within 5e-3 m, headings within 1e-3 rad, at most
   four frames over 1e-2 m and none over 5e-2 m); the post-PGO node ATE
-  within 1 cm of the JAX package's (``test_torch_slam.py``).  Not the 1.05
+  within 1 cm of the JAX package's (``test_torch_loops.py``).  Not the 1.05
   x rule against the odometry: on this drive the odometry's node ATE is
   2.2 cm and both packages' pose graphs end 1.05 x above it (the JAX
   package 1.051 x, measured), a loop pass with nothing left to correct;
@@ -28,12 +28,13 @@ What must hold, and why:
   millimetres apart tip near-ties (measured: 1 of 25 queries here);
 * so the loop pass is also held from identical odometry (the JAX package's
   result carried across, as ``test_torch_loops.py`` does), on this drive
-  and on ``chip_smoke.py`` phase 13's drive at the shipped
-  ``num_exclude_recent`` of 50 (136 frames, laps of 112, phase 13's seed
-  and ``weight_imu_bias``; its odometry from the JAX package alone, one
-  JAX run): the candidate table (every query's match and stage) identical,
-  the same edges, their refined poses within that test's
-  one-ulp-decided-step band (5e-3 m, 1e-4 rad);
+  (the JAX package's loop pass there is its ``run_slam``'s own, held bit
+  for bit to the plain ``detect_loops`` call) and on ``chip_smoke.py``
+  phase 13's drive at the shipped ``num_exclude_recent`` of 50 (136
+  frames, laps of 112, phase 13's seed and ``weight_imu_bias``; its
+  odometry from the JAX package alone, one JAX run): the candidate table
+  (every query's match and stage) identical, the same edges, their refined
+  poses within that test's one-ulp-decided-step band (5e-3 m, 1e-4 rad);
 * the CS gate at the JAX package's refined poses: the port's within
   ``CS64_REL`` of the JAX package's own gate function (``cs_divergence``
   with its ``self_term`` and ``transform_mean_cov``) on the same inputs,
@@ -64,8 +65,9 @@ from randt_slam_torch.loops import detector as tdet
 from randt_slam_torch.pipeline import slam as tS
 from randt_slam_tpu.ndt import divergence as jD
 from randt_slam_tpu.registration import matcher as jMa
-from tests.test_torch_loops import (CS64_REL, CS_REL, STEP_ANG, STEP_LIN,  # noqa: F401
-                                    one_thread)
+from tests.test_torch_loops import (CS64_REL, CS_REL, STEP_ANG, STEP_LIN,
+                                    assert_phase_is_the_plain_call, jax_run_slam)
+from tests.torch_threads import one_thread  # noqa: F401
 
 N_FRAMES, LAP, SEED = 64, 48, 3
 ROUND = (0.0, 0.0)      # straights of length 0: a circle
@@ -80,11 +82,11 @@ ATE_GAP = 1e-2
 def runs():
     scans, az, ranges, stamps, imu, gt = render_indoor(N_FRAMES, LAP, SEED, ROUND)
     jframes = jS.frames_from_arrays(scans, az, ranges, stamps, imu_yaw=imu)
-    jres = jS.run_slam(j_indoor(**OVERRIDES), jframes)
+    jres, jcalls = jax_run_slam(j_indoor(**OVERRIDES), jframes)
     tframes = tS.frames_from_arrays(scans, az, ranges, stamps, imu_yaw=imu,
                                     device="cpu")
     tres = tS.run_slam(t_indoor(**OVERRIDES), tframes, device="cpu")
-    return dict(gt=gt, j=jres, t=tres, jframes=jframes, tframes=tframes)
+    return dict(gt=gt, j=jres, jcalls=jcalls, t=tres, jframes=jframes, tframes=tframes)
 
 
 def test_indoor_config_turns_the_imu_on():
@@ -137,9 +139,17 @@ def test_pose_graph_against_odometry_and_reference(runs):
     assert abs(before - j_before) <= FREE_ATE, (before, j_before)
 
 
+def test_jax_slam_loop_phase_is_the_plain_call(runs):
+    """The next test takes the JAX package's loop pass from its ``run_slam``:
+    what ``detect_loops`` gives from its odometry, bit for bit."""
+    assert_phase_is_the_plain_call(j_indoor(**OVERRIDES), runs["jframes"], runs["j"],
+                                   runs["jcalls"], "loops")
+
+
 def test_loop_pass_from_the_jax_odometry(runs):
     cs, det, _ = _hold_loop_pass(j_indoor(**OVERRIDES), t_indoor(**OVERRIDES),
-                                 runs["j"].odometry, runs["jframes"], runs["tframes"])
+                                 runs["j"].odometry, runs["jframes"], runs["tframes"],
+                                 j=runs["j"].loops)
     np.testing.assert_allclose(cs, det, rtol=CS_REL)
 
 
@@ -162,12 +172,14 @@ def test_loop_pass_at_the_shipped_exclusion(phase13_drive):
     assert np.all((gap <= CS_REL * det) | (own >= 0.5 * gap)), (cs, det, on_port_cells)
 
 
-def _hold_loop_pass(jcfg, tcfg, jodo, jframes, tframes):
-    """Both packages' loop pass from the JAX package's odometry ``jodo``.
+def _hold_loop_pass(jcfg, tcfg, jodo, jframes, tframes, j=None):
+    """Both packages' loop pass from the JAX package's odometry ``jodo`` (the
+    JAX package's own ``j``, when its ``run_slam`` made it already).
     Returns the port's CS gate at the JAX package's refined poses, the JAX
     package's detector divergences, and its gate function on the port's
     cells at those poses."""
-    j = jdet.detect_loops(jcfg, jodo, jframes)
+    if j is None:
+        j = jdet.detect_loops(jcfg, jodo, jframes)
     todo = state.odometry_from_numpy(jodo, "cpu")
     t = tdet.detect_loops(tcfg, todo, tframes, device="cpu")
     for k in ("query_node", "query_match", "query_stage", "edge_begin", "edge_end"):

@@ -39,7 +39,7 @@ from randt_slam_torch.ndt import grid as tG
 from randt_slam_torch.pipeline import frontend as tF, slam as tS
 from randt_slam_torch.registration import matcher as tM
 from randt_slam_torch.registration import residuals as tR
-from tests.test_torch_imu import one_thread  # noqa: F401
+from tests.torch_threads import one_thread  # noqa: F401
 
 LIN_TOL, ANG_TOL = 1e-4, 1e-5       # from identical inputs
 EDGE_LIN_TOL, EDGE_ANG_TOL = 5e-3, 1e-4  # one ulp-decided LM step

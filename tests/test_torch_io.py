@@ -38,6 +38,7 @@ from randt_slam_tpu.io import rosbag as jRB
 from randt_slam_torch.io import kitti_eval as tKE
 from randt_slam_torch.io import oxford as tOX
 from randt_slam_torch.io import rosbag as tRB
+from tests.torch_threads import one_thread  # noqa: F401
 
 
 def _equal(a, b):

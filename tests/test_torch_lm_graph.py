@@ -12,6 +12,7 @@ from randt_slam_torch.pipeline import slam
 from randt_slam_torch.registration import matcher, solve_graph
 from tests.test_torch_kernels_cuda import (GRAPH_COUNTERS, GRAPH_MATCHER, graph_config,
                                            graph_counts, graph_frames)
+from tests.torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -27,6 +27,7 @@ from randt_slam_torch.pipeline import slam
 from randt_slam_torch.registration import matcher, solver, window
 from randt_slam_torch.utils import profiling
 from tests.test_torch_kernels_cuda import graph_config, graph_frames
+from tests.torch_threads import one_thread  # noqa: F401
 
 # aten ops of one switches-on window solve (4 existing states) on the CPU
 UNBATCHED_OPS = {

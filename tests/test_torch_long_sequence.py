@@ -49,21 +49,13 @@ from randt_slam_torch.pipeline import slam as tS
 from randt_slam_torch.pipeline.online import OnlineSlam
 from tests.test_torch_kernels_cuda import tiny_config
 from tests.test_torch_odometry import LIMITS, POS_TOL, TABLES
+from tests.torch_threads import one_thread  # noqa: F401
 
 T = 10
 RESULT_FIELDS = ("odom_poses", "node_id", "node_pose", "node_stamp", "node_traversed",
                  "node_submap", "node_frame", "node_is_root", "edge_begin", "edge_end",
                  "edge_trans", "edge_sqrt_information", "submap_origin", "submap_root",
                  "rejected_frames", "node_desc")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The port's eager CPU path runs fastest on one intra-op thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -91,12 +83,22 @@ def resident(seq):
     return get
 
 
-def _chunked(seq, dtype, chunk):
-    frames = tS.frames_from_arrays(_intensity(seq, dtype), *seq[1:], host=True)
-    assert frames.intensity.device.type == "cpu"
-    assert frames.intensity.dtype == {"float32": torch.float32, "float16": torch.float16,
-                                      "uint8": torch.uint8}[dtype]
-    return tS.run_odometry(t_cfg(), frames, device="cpu", chunk=chunk)
+@pytest.fixture(scope="module")
+def chunked(seq):
+    """Runs from host memory in chunks, one per frame type and chunk size."""
+    cache = {}
+
+    def get(dtype, chunk):
+        if (dtype, chunk) not in cache:
+            frames = tS.frames_from_arrays(_intensity(seq, dtype), *seq[1:], host=True)
+            assert frames.intensity.device.type == "cpu"
+            assert frames.intensity.dtype == {"float32": torch.float32,
+                                              "float16": torch.float16,
+                                              "uint8": torch.uint8}[dtype]
+            cache[dtype, chunk] = tS.run_odometry(t_cfg(), frames, device="cpu",
+                                                  chunk=chunk)
+        return cache[dtype, chunk]
+    return get
 
 
 def assert_same_odometry(a, b):
@@ -110,9 +112,9 @@ def assert_same_odometry(a, b):
 @pytest.mark.parametrize("dtype,chunk", [("float32", 5), ("float32", 8),
                                          ("float32", T), ("float16", 8),
                                          ("uint8", 8)])
-def test_chunked_odometry_is_the_resident_run(seq, resident, dtype, chunk):
+def test_chunked_odometry_is_the_resident_run(resident, chunked, dtype, chunk):
     ref = resident(dtype)
-    res = _chunked(seq, dtype, chunk)
+    res = chunked(dtype, chunk)
     assert_same_odometry(res, ref)
     # a node whose source frame lies in an earlier chunk
     emitted = np.asarray(res.node_frame) + t_cfg().local_fuser.insertion_delay
@@ -121,10 +123,10 @@ def test_chunked_odometry_is_the_resident_run(seq, resident, dtype, chunk):
     assert len(ref.chunk_seconds) == 0 and np.all(res.chunk_seconds > 0)
 
 
-def test_chunked_tables_are_the_jax_packages(seq):
+def test_chunked_tables_are_the_jax_packages(seq, chunked):
     frames = jS.frames_from_arrays(*seq, host=True)
     jr = jS.run_odometry(j_cfg(), frames, use_scan=True, chunk=8)
-    tr = _chunked(seq, "float32", 8)
+    tr = chunked("float32", 8)
     for k in TABLES:
         np.testing.assert_array_equal(getattr(tr, k), getattr(jr, k), err_msg=k)
     assert len(tr.chunk_seconds) == len(jr.chunk_seconds) == 2

@@ -32,6 +32,23 @@
   themselves on this sequence, and the edge band moves a divergence by up
   to ~3e-4.  The port's own divergences are held to 1e-4 of a float64
   evaluation of its gate, from its own refined poses and cells.
+* Full offline SLAM (``pipeline/slam.run_slam``) on the same sequence,
+  against the JAX package's ``run_slam``.  Both sides run odometry,
+  ScanContext loop closure and the pose graph from the same frames.
+  Free-running odometry differs by ulp-decided LM steps (ROADMAP section
+  3), so the loop phase is judged from identical odometry above; here the
+  whole run is held to what the reference's own test asks of it, and to
+  the reference's result: at least one loop edge, each from a submap root
+  to a later query node; the post-PGO node ATE no worse than 1.05 x the
+  odometry node ATE, and within 1 cm of the JAX package's post-PGO ATE;
+  the submap origins re-anchored on their root nodes' optimized poses; the
+  dense pose-graph route with the two-stage DCS schedule, on both sides.
+
+The sequence is rendered once, and the JAX package runs it once: the
+detector tests take its odometry and its ScanContext loop result from its
+``run_slam``, whose two phases are the very calls they would make
+(``test_jax_slam_phases_are_the_detector_tests_calls`` holds the arguments
+and the bits).
 """
 
 import dataclasses
@@ -44,7 +61,7 @@ import torch
 
 from randt_slam_tpu.config import ScanContextConfig as jSCC
 from randt_slam_tpu.config import synthetic_config as j_cfg
-from randt_slam_tpu.io import synthetic
+from randt_slam_tpu.io import formats, synthetic
 from randt_slam_tpu.loops import detector as jdet
 from randt_slam_tpu.ndt import grid as jG
 from randt_slam_tpu.pipeline import slam as jS
@@ -57,26 +74,17 @@ from randt_slam_torch.ndt import grid as tG
 from randt_slam_torch.pipeline import slam as tS
 from randt_slam_torch.registration import matcher as tM
 from randt_slam_torch.registration import solver as tsolver
+from tests.torch_threads import one_thread  # noqa: F401
 
 STEP_LIN, STEP_ANG = 5e-3, 1e-4       # one ulp-decided LM step
 EDGE_LIN, EDGE_ANG = 2e-2, 2e-4       # the reference's own spread (below)
 LIN, ANG = 1e-4, 1e-5                 # no LM decision in between
 CS_REL = 2e-3                         # against the JAX package (below)
 CS64_REL = 1e-4                       # against a float64 evaluation
+ATE_GAP = 1e-2                        # post-PGO node ATE against the JAX package's
 SC_KW = dict(num_ring=20, num_sector=60, max_radius=80.0, num_exclude_recent=20,
              num_candidates=5, dist_threshold=0.7, odom_weight=0.05, odom_eps=4.0,
              assumed_drift=0.05, intensity_factor=0.01)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The port's eager CPU path launches many small ops: one intra-op
-    thread runs them fastest (several threads only contend, more so beside
-    JAX's own thread pool in one process)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _loop_cfg(make, scc, **lf):
@@ -222,16 +230,92 @@ def test_batched_lm_freezes_each_member_alone():
 
 
 @pytest.fixture(scope="module")
-def loop_run():
-    seq = synthetic.generate(seed=7, n_frames=130, n_azimuths=256, n_bins=256,
-                             speed=4.0, dt=0.25, loop=True, n_walls=80)
-    jcfg = _loop_cfg(j_cfg, jSCC)
+def loop_seq():
+    """The reference's loop sequence, rendered once for the detector and the
+    full-SLAM tests."""
+    return synthetic.generate(seed=7, n_frames=130, n_azimuths=256, n_bins=256,
+                              speed=4.0, dt=0.25, loop=True, n_walls=80)
+
+
+def _leaves(result):
+    """Every field of a result dataclass, as copies of its leaves."""
+    return {f.name: [np.array(x) for x in jax.tree.leaves(getattr(result, f.name))]
+            for f in dataclasses.fields(result)}
+
+
+def jax_run_slam(cfg, jframes):
+    """The JAX package's ``run_slam``, and each ``run_odometry`` and
+    ``detect_loops`` call it made: its arguments and a copy of its result
+    taken as it returned."""
+    calls = {"odometry": [], "loops": []}
+
+    def recording(phase, fn):
+        def run(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            calls[phase].append((args, kwargs, _leaves(out)))
+            return out
+        return run
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jS, "run_odometry", recording("odometry", jS.run_odometry))
+        mp.setattr(jdet, "detect_loops", recording("loops", jdet.detect_loops))
+        res = jS.run_slam(cfg, jframes)
+    return res, calls
+
+
+def assert_phase_is_the_plain_call(cfg, jframes, res, calls, phase):
+    """``run_slam``'s odometry phase was one ``run_odometry(cfg, frames,
+    use_scan=True)`` (``phase="odometry"``), or its loop phase one
+    ``detect_loops(cfg, odo, frames)`` (``"loops"``), on these frames at
+    this configuration, and its result holds what the call returned, bit
+    for bit."""
+    assert len(calls[phase]) == 1, calls[phase]
+    args, kwargs, returned = calls[phase][0]
+    assert args[0] == cfg and args[1 + (phase == "loops")] is jframes
+    if phase == "odometry":
+        assert kwargs == dict(sensor_to_base=None, initial_pose=None, use_scan=True,
+                              chunk=0), kwargs
+    else:
+        assert args[1] is res.odometry and args[3:] == (None,) and not kwargs
+    held = _leaves(getattr(res, phase))
+    assert held.keys() == returned.keys()
+    for k, leaves in returned.items():
+        assert len(held[k]) == len(leaves), k
+        for a, b in zip(held[k], leaves):
+            assert a.dtype == b.dtype and a.shape == b.shape, k
+            assert a.tobytes() == b.tobytes(), k
+
+
+@pytest.fixture(scope="module")
+def jax_slam(loop_seq):
+    """The JAX package's ``run_slam`` on the loop sequence, its frames, and
+    the calls of its two phases (``jax_run_slam``)."""
+    seq = loop_seq
     jframes = jS.frames_from_arrays(seq.intensity, seq.azimuths, seq.ranges,
                                     seq.stamps)
-    odo = jS.run_odometry(jcfg, jframes, use_scan=True)
+    res, calls = jax_run_slam(_loop_cfg(j_cfg, jSCC), jframes)
+    return res, jframes, calls
+
+
+@pytest.mark.parametrize("phase", ["odometry", "loops"])
+def test_jax_slam_phases_are_the_detector_tests_calls(jax_slam, phase):
+    """The detector tests take the JAX package's odometry and its ScanContext
+    loop result from its ``run_slam``: each is what the plain call gives."""
+    res, jframes, calls = jax_slam
+    assert_phase_is_the_plain_call(_loop_cfg(j_cfg, jSCC), jframes, res, calls, phase)
+
+
+@pytest.fixture(scope="module")
+def loop_run(loop_seq, jax_slam):
+    """The JAX package's odometry and ScanContext loop result of the loop
+    sequence (its ``run_slam``'s phases, as the test above holds), both
+    packages' frames, and the odometry carried across."""
+    seq = loop_seq
+    res, jframes, _ = jax_slam
     tframes = tS.frames_from_arrays(seq.intensity, seq.azimuths, seq.ranges,
                                     seq.stamps, device="cpu")
-    return odo, jframes, tframes, state.odometry_from_numpy(odo, "cpu")
+    return (res.odometry, res.loops, jframes, tframes,
+            state.odometry_from_numpy(res.odometry, "cpu"))
 
 
 def _variant_b(make, scc):
@@ -243,9 +327,9 @@ def _variant_b(make, scc):
 
 @pytest.mark.parametrize("variant", ["scancontext", "mahalanobis"])
 def test_detect_loops_from_the_jax_odometry(loop_run, variant):
-    odo, jframes, tframes, t_odo = loop_run
+    odo, j_loops, jframes, tframes, t_odo = loop_run
     if variant == "scancontext":
-        j = jdet.detect_loops(_loop_cfg(j_cfg, jSCC), odo, jframes)
+        j = j_loops
         t = tdet.detect_loops(_loop_cfg(t_cfg, tSCC), t_odo, tframes, device="cpu")
         for k in ("query_node", "query_match", "query_stage"):
             np.testing.assert_array_equal(getattr(t, k), getattr(j, k), err_msg=k)
@@ -289,3 +373,83 @@ def _cs_float64(odo, frames, res):
                        fields[1][s], fields[2][s], *moving,
                        torch.tensor([by_sub[int(x)] for x in sub], dtype=torch.float64))
     return cs.numpy()
+
+
+# ---- full offline SLAM on the same sequence ----------------------------------
+
+
+@pytest.fixture(scope="module")
+def runs(loop_seq, jax_slam):
+    seq = loop_seq
+    tframes = tS.frames_from_arrays(seq.intensity, seq.azimuths, seq.ranges,
+                                    seq.stamps, device="cpu")
+    tres = tS.run_slam(_loop_cfg(t_cfg, tSCC), tframes, device="cpu")
+    return seq, jax_slam[0], tres
+
+
+def _ates(seq, res):
+    gt = seq.gt_poses[res.node_frame]
+    return (formats.ate(res.odometry.node_pose, gt, align=True),
+            formats.ate(res.node_pose_optimized, gt, align=True))
+
+
+def test_port_closes_loops(runs):
+    seq, jres, tres = runs
+    loops = tres.loops
+    assert loops.n_sc_candidates > 0 and loops.n_accepted > 0
+    assert np.all(loops.edge_begin < loops.edge_end)
+    assert set(loops.edge_begin) <= set(tres.odometry.submap_root.tolist())
+    assert jres.loops.n_accepted > 0
+    for k in ("features_s", "retrieval_s", "cand_features_s", "refine_gate_s"):
+        assert loops.timings[k] >= 0.0, k
+    assert all(tres.timings[k] >= 0.0 for k in ("odometry_s", "loop_closure_s",
+                                                "pgo_s"))
+
+
+def test_pgo_ate_against_odometry_and_reference(runs):
+    seq, jres, tres = runs
+    t_before, t_after = _ates(seq, tres)
+    _, j_after = _ates(seq, jres)
+    assert np.all(np.isfinite(tres.node_pose_optimized))
+    assert t_after <= 1.05 * t_before, (t_before, t_after)
+    assert abs(t_after - j_after) <= ATE_GAP, (t_after, j_after)
+
+
+def test_submaps_reanchored(runs):
+    _, _, tres = runs
+    odo = tres.odometry
+    n = odo.n_submaps
+    np.testing.assert_array_equal(tres.submap_origin_optimized[:n],
+                                  tres.node_pose_optimized[odo.submap_root[:n]])
+    np.testing.assert_array_equal(tres.submap_origin_optimized[n:],
+                                  odo.submap_origin[n:])
+
+
+def test_pose_graph_route(runs):
+    _, jres, tres = runs
+    assert tres.timings["pgo_solver"] == jres.timings["pgo_solver"] == "dense"
+    assert tres.timings["pgo_two_stage"]
+    assert tres.pgo_iterations >= 1
+
+
+def test_variant_b_with_recovered_covariances(runs):
+    """``run_slam``'s position-association branch from the port's odometry:
+    node covariances recovered from the odometry-only graph, then
+    ``detect_loops_mahalanobis`` closes loops from a submap root to a later
+    query node (the JAX package's variant-B test, with the covariances its
+    ``run_slam`` passes)."""
+    from randt_slam_torch.graph import pose_graph as tPG
+
+    seq, _, tres = runs
+    odo = tres.odometry
+    cfg = _loop_cfg(t_cfg, tSCC, use_scan_context_as_loop_closure=False,
+                    max_data_association_mahalanobis_dist=8.0)
+    g0 = tS.build_pose_graph(odo, None, "cpu")
+    node_cov = tPG.recover_covariances(g0, g0.poses, cfg.global_fuser).numpy()
+    assert node_cov.shape == (len(odo.node_id), 3, 3) and np.all(node_cov[0] == 0)
+    frames = tS.frames_from_arrays(seq.intensity, seq.azimuths, seq.ranges,
+                                   seq.stamps, device="cpu")
+    loops = tdet.detect_loops_mahalanobis(cfg, odo, frames, node_cov=node_cov,
+                                          device="cpu")
+    assert loops.n_sc_candidates > 0 and loops.n_accepted > 0
+    assert np.all(loops.edge_begin < loops.edge_end)

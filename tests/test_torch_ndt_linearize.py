@@ -24,6 +24,7 @@ import torch
 
 from randt_slam_tpu.ops import ndt_linearize as jNL
 from randt_slam_torch.ops import ndt_linearize as tNL
+from tests.torch_threads import one_thread  # noqa: F401
 
 REL = 1e-5
 

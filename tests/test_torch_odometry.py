@@ -71,6 +71,7 @@ from randt_slam_tpu.pipeline import frontend as jF, slam as jS
 from randt_slam_torch import state
 from randt_slam_torch.config import synthetic_config as t_cfg
 from randt_slam_torch.pipeline import frontend as tF, slam as tS
+from tests.torch_threads import one_thread  # noqa: F401
 
 TABLES = ("node_id", "node_frame", "node_submap", "node_is_root",
           "edge_begin", "edge_end")

@@ -44,6 +44,7 @@ from randt_slam_torch.io import viz as tviz
 from randt_slam_torch.mapping import ogm as tOGM
 from randt_slam_torch.mapping import raytrace as tRT
 from randt_slam_torch.pipeline import slam as tS
+from tests.torch_threads import one_thread  # noqa: F401
 
 OCC_TOL = 1e-5
 # a resampling sample's float32 position is a sum of products (the

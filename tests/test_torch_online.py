@@ -85,20 +85,12 @@ from randt_slam_torch.utils import checkpoint as tCK
 from tests.test_torch_kernels_cuda import tiny_config
 from tests.test_torch_loops import CS_REL, STEP_ANG, STEP_LIN, _loop_cfg
 from tests.test_torch_ogm import OCC_TOL, _boundary_cells
+from tests.torch_threads import one_thread  # noqa: F401
 
 CS_ONE = 1e-4          # CS of one candidate against the JAX engine's
 PGO_LIN = 1e-4         # poses after one pose-graph tick from identical state
 ATE_GAP = 1e-2         # post-PGO node ATE after the free run to the end
 SAVED_AT = 114
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The port's eager CPU path runs fastest on one intra-op thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jframe(frames, t):

@@ -18,6 +18,7 @@ from randt_slam_tpu.config import MapConfig, PreprocessorConfig, SlamConfig, der
 from randt_slam_tpu.io import synthetic
 from randt_slam_torch import preprocess as tpp
 from randt_slam_torch import config as tconfig
+from tests.torch_threads import one_thread  # noqa: F401
 
 
 def _cfg(thresh=1.5):

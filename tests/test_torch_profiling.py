@@ -23,6 +23,7 @@ from randt_slam_torch.pipeline import slam as tS
 from randt_slam_torch.registration import barron
 from randt_slam_torch.registration import solver as S
 from randt_slam_torch.utils import profiling as P
+from tests.torch_threads import one_thread  # noqa: F401
 
 RF_ENTER = "profiler._record_function_enter_new.default"
 

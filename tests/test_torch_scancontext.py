@@ -26,6 +26,7 @@ from randt_slam_tpu.config import ScanContextConfig as jSCC
 from randt_slam_tpu.loops import scancontext as jSC
 from randt_slam_torch.config import ScanContextConfig as tSCC
 from randt_slam_torch.loops import scancontext as tSC
+from tests.torch_threads import one_thread  # noqa: F401
 
 KW = dict(num_ring=20, num_sector=60, max_radius=80.0, num_exclude_recent=20,
           num_candidates=5, dist_threshold=0.7, odom_weight=0.05, odom_eps=4.0,

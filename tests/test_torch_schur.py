@@ -37,6 +37,7 @@ from randt_slam_torch.config import GlobalFuserConfig as tGFC
 from randt_slam_torch.graph import pose_graph as tPG
 from randt_slam_torch.graph import schur as tschur
 from tests.test_schur import _slam_graph
+from tests.torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-4
 POSE_REL = 1e-5

@@ -24,6 +24,7 @@ import torch
 
 from randt_slam_torch.ndt import cells as tC
 from randt_slam_torch.ops import segment_moments as tsm
+from tests.torch_threads import one_thread  # noqa: F401
 
 jC = importlib.import_module("randt_slam_tpu.ndt.cells")
 

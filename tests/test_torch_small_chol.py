@@ -21,6 +21,7 @@ import torch
 
 from randt_slam_tpu.ops import small_chol as jSC
 from randt_slam_torch.ops import small_chol as tSC
+from tests.torch_threads import one_thread  # noqa: F401
 
 P = 36
 EPS32 = float(np.finfo(np.float32).eps)

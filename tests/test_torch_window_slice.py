@@ -14,6 +14,7 @@ import torch
 
 from randt_slam_tpu.ops import window_slice as jws
 from randt_slam_torch.ops import window_slice as tws
+from tests.torch_threads import one_thread  # noqa: F401
 
 A, R = 48, 300
 
